@@ -1,0 +1,95 @@
+"""Hierarchical (coarse/fine) volume rendering (port of
+``msra_practice_project_tpu/ops/render.py``: ``render_rays`` and
+``render_image``).
+
+The model is a function ``model_fn(x[..., 6]) -> [..., 4]``.  Randomness is
+explicit: a ``torch.Generator`` draws the stratified jitter, or the caller
+hands the jitter in (the parity tests rebuild JAX's draws).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .composite import raw_to_outputs
+from .rays import get_rays_flat
+from .sampling import sample_pdf, stratified_samples
+
+
+def render_rays(rays_o, rays_d, near, far, coarse_fn, fine_fn,
+                coarse_sample_num: int, fine_sample_num: int,
+                perturb: bool = True, white_bkgd: bool = True,
+                last_dist_mode: str = "inf", *,
+                generator: torch.Generator | None = None,
+                jitter: torch.Tensor | None = None):
+    """Render a batch of rays (ref: nerf/render.py:106-147).
+
+    rays_o/rays_d: ``[..., R, 3]``.  Returns a dict with the coarse and fine
+    rgb/depth/acc maps (``[..., R, 3]`` / ``[..., R]``).  ``jitter``
+    (``[..., R, coarse_sample_num]``) replaces the generator's draws.
+    """
+    view_dirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    batch_shape = rays_o.shape[:-1]
+
+    # Coarse pass: stratified samples.
+    z_vals, mids = stratified_samples(
+        near, far, coarse_sample_num, batch_shape, perturb,
+        generator=generator, jitter=jitter, device=rays_o.device,
+        dtype=rays_o.dtype)
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    dirs = view_dirs[..., None, :].expand(pts.shape)
+    raw = coarse_fn(torch.cat([pts, dirs], dim=-1))
+    rgb_c, depth_c, acc_c, weights = raw_to_outputs(
+        raw, z_vals, rays_d, white_bkgd, last_dist_mode)
+
+    # Fine pass: importance samples from the coarse weights, merged + sorted.
+    z_samples = sample_pdf(mids, weights[..., 1:-1], fine_sample_num)
+    z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
+    dirs = view_dirs[..., None, :].expand(pts.shape)
+    raw = fine_fn(torch.cat([pts, dirs], dim=-1))
+    rgb_f, depth_f, acc_f, _ = raw_to_outputs(raw, z_all, rays_d, white_bkgd,
+                                              last_dist_mode)
+
+    return {
+        "rgb_coarse": rgb_c, "depth_coarse": depth_c, "acc_coarse": acc_c,
+        "rgb_fine": rgb_f, "depth_fine": depth_f, "acc_fine": acc_f,
+    }
+
+
+def _pad_to_multiple(x, multiple):
+    """Pad rows up to a multiple by repeating the last row (``edge``)."""
+    n = x.shape[0]
+    pad = (-n) % multiple
+    if pad == 0:
+        return x, n
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0), n
+
+
+@torch.no_grad()
+def render_image(width, height, focal, c2w, near, far, coarse_fn, fine_fn,
+                 coarse_sample_num: int, fine_sample_num: int,
+                 chunk: int = 16384, perturb: bool = True,
+                 white_bkgd: bool = True, *,
+                 generator: torch.Generator | None = None, device=None):
+    """Full-frame render, tiled over fixed-size ray blocks
+    (ref: nerf/render.py:150-167).  Returns (rgb ``[H,W,3]``, depth
+    ``[H,W,1]``, acc ``[H,W,1]``) tensors on ``device``."""
+    chunk = min(chunk, width * height)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
+    rays_o, rays_d = get_rays_flat(width, height, focal, c2w)
+    rays_o, n = _pad_to_multiple(rays_o, chunk)
+    rays_d, _ = _pad_to_multiple(rays_d, chunk)
+    rgbs, depths, accs = [], [], []
+    for lo in range(0, rays_o.shape[0], chunk):
+        out = render_rays(rays_o[lo:lo + chunk], rays_d[lo:lo + chunk], near,
+                          far, coarse_fn, fine_fn, coarse_sample_num,
+                          fine_sample_num, perturb, white_bkgd,
+                          generator=generator)
+        rgbs.append(out["rgb_fine"])
+        depths.append(out["depth_fine"])
+        accs.append(out["acc_fine"])
+    rgb = torch.cat(rgbs)[:n].reshape(height, width, 3)
+    depth = torch.cat(depths)[:n].reshape(height, width, 1)
+    acc = torch.cat(accs)[:n].reshape(height, width, 1)
+    return rgb, depth, acc

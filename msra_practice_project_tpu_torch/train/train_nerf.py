@@ -1,0 +1,330 @@
+"""NeRF training on Blender-synthetic scenes (port of
+``msra_practice_project_tpu/train/train_nerf.py``).
+
+  * All train rays + rgba as one shuffled ``[N*H*W, 10]`` buffer on the
+    device; the start-up phase (the first ``start_up_itrs`` iterations) draws
+    from the centre crop of one random train image.
+  * Coarse+fine MSE (+0.1 * alpha loss with ``use_alpha``), one Adam over
+    both models with lr * 0.1^(step / (decay * 1000)).
+  * Epoch reshuffle really reshuffles (the reference's is a no-op bug).
+  * On CUDA both MLP calls of the step go through the fused kernels
+    (``ops/kernels/nerf_mlp.py``: K1 forward with saved activations, K2
+    backward, bf16 tensor-core matmuls), as ``use_fused_mlp`` does on the TPU;
+    on the CPU they use the plain model.
+  * ``steps_per_call`` is read but the loop runs one step per iteration: the
+    JAX trainer scans that many steps per dispatch, which is the same math.
+
+Not in this port yet: the watchdog, the step profiler, data parallelism and
+the exact-stream resume (a resumed run restarts its batch stream).
+
+Run: python -m msra_practice_project_tpu_torch.train.train_nerf <config.json>
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device, set_plain_precision
+from ..core import ckpt as ckpt_lib
+from ..core import image_io
+from ..core.config import NERF_TRAIN_DEFAULTS, log_dir, save_config
+from ..core.logging import MetricLogger, log_print
+from ..data import blender
+from ..models.nerf import nerf_model
+from ..ops import rays as ray_ops
+from ..ops.kernels.nerf_mlp import fused_nerf_apply
+from ..ops.render import render_image, render_rays
+from . import common
+
+
+# ---------------------------------------------------------------------------
+# Ray pre-batching
+# ---------------------------------------------------------------------------
+
+
+def _ray_rows(img, pose, width, height, focal, device):
+    ro, rd = ray_ops.get_rays(width, height, focal,
+                              torch.as_tensor(pose[:3, :4], device=device))
+    rgba = torch.as_tensor(np.ascontiguousarray(img), device=device)
+    return torch.cat([ro.reshape(-1, 3), rd.reshape(-1, 3),
+                      rgba.reshape(-1, 4)], dim=1)
+
+
+def build_ray_buffer(images, poses, width, height, focal,
+                     generator: torch.Generator, device=None):
+    """All train rays+rgba as one shuffled buffer ``[N*H*W, 10]``
+    (ref: nerf/train_nerf.py:78-86)."""
+    buf = torch.cat([_ray_rows(img, pose, width, height, focal, device)
+                     for img, pose in zip(images, poses)], dim=0)
+    perm = torch.randperm(buf.shape[0], generator=generator)
+    return buf[perm.to(buf.device)]
+
+
+def build_startup_buffer(images, poses, width, height, focal, device=None):
+    """Centre-crop ray buffer per train image ``[N, s_h*s_w, 10]``: rays of
+    a half-size image with the same focal, i.e. the centre crop of the full
+    image's ray grid (ref: nerf/train_nerf.py:125-137)."""
+    s_w, s_h = int(width / 2), int(height / 2)
+    s_left, s_top = int(width / 4), int(height / 4)
+    return torch.stack([
+        _ray_rows(img[s_top:s_top + s_h, s_left:s_left + s_w], pose, s_w,
+                  s_h, focal, device)
+        for img, pose in zip(images, poses)])
+
+
+def sample_startup_batch(startup_buf, generator: torch.Generator,
+                         batch_size: int):
+    """One random image, ``batch_size`` crop rays without replacement
+    (with replacement only when the crop has fewer pixels than the batch)
+    (ref: nerf/train_nerf.py:128-137)."""
+    n_img, n_px = startup_buf.shape[:2]
+    img_idx = int(torch.randint(0, n_img, (1,), generator=generator))
+    if batch_size > n_px:
+        rows = torch.randint(0, n_px, (batch_size,), generator=generator)
+    else:
+        rows = torch.randperm(n_px, generator=generator)[:batch_size]
+    return startup_buf[img_idx][rows.to(startup_buf.device)]
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(coarse_model, fine_model, opt, cfg, device):
+    """Returns step(batch [B,10], *, generator=None, jitter=None) -> metrics,
+    which updates the models in place.  ``jitter`` ([B, n_coarse]) replaces
+    the stratified draws from ``generator``.  On CUDA the MLP runs only
+    through the fused kernels, so a config that turns them off (or asks for
+    the SIREN NeRF, which has none yet) raises there."""
+    use_fine = cfg["use_fine_model"]
+    use_alpha = cfg["use_alpha"]
+    near, far = cfg["render_near"], cfg["render_far"]
+    nc, nf = cfg["render_coarse_sample_num"], cfg["render_fine_sample_num"]
+    if torch.device(device).type == "cuda":
+        if not cfg.get("use_fused_mlp", True) or cfg.get("use_siren", False):
+            raise NotImplementedError(
+                "on CUDA the NeRF MLP runs only through the fused kernels: "
+                "use_fused_mlp=False and use_siren=True are not supported")
+        apply_c = lambda x: fused_nerf_apply(coarse_model, x, True)  # noqa
+        apply_f = lambda x: fused_nerf_apply(fine_model, x, True)    # noqa
+    else:
+        apply_c, apply_f = coarse_model, fine_model
+    if not use_fine:
+        apply_f = apply_c
+
+    def step(batch, *, generator=None, jitter=None):
+        rays_o, rays_d = batch[:, 0:3], batch[:, 3:6]
+        target_rgb, target_alpha = batch[:, 6:9], batch[:, 9]
+        out = render_rays(rays_o, rays_d, near, far, apply_c, apply_f, nc, nf,
+                          generator=generator, jitter=jitter)
+        loss_coarse = torch.mean((out["rgb_coarse"] - target_rgb) ** 2)
+        loss_fine = torch.mean((out["rgb_fine"] - target_rgb) ** 2)
+        psnr = -10.0 * torch.log10(loss_fine.detach())
+        if use_alpha:
+            loss_coarse = loss_coarse + 0.1 * torch.mean(
+                (out["acc_coarse"] - target_alpha) ** 2)
+            loss_fine = loss_fine + 0.1 * torch.mean(
+                (out["acc_fine"] - target_alpha) ** 2)
+        loss = loss_fine + loss_coarse if use_fine else loss_fine
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(), "loss_coarse": loss_coarse.detach(),
+                "loss_fine": loss_fine.detach(), "psnr": psnr}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Driver
+# ---------------------------------------------------------------------------
+
+
+def load_dataset(config):
+    data_path = config["data_path"]
+    if os.path.isdir(data_path):
+        images, poses, width, height, focal, train_idx = \
+            blender.load_blender_data(
+                data_path, config["data_resize"], config["data_skip"],
+                config["data_view_dir_range"], config["data_target_num"],
+                config["data_train_idx"],
+                rng=np.random.default_rng(config.get("seed", 0)))
+    else:
+        log_print(f"[data] {data_path!r} not found - generating synthetic "
+                  "blender scene")
+        tmp = os.path.join(log_dir(config), "_synthetic_data")
+        blender.make_synthetic_blender(tmp, size=config.get("data_size", 32))
+        images, poses, width, height, focal, train_idx = \
+            blender.load_blender_data(tmp, 1.0, 1)
+    blender.premultiply_white(images)
+    if config["data_view_dir_noise"] is not None:
+        poses["train"] = poses["train"] + (
+            np.random.default_rng(0).normal(size=poses["train"].shape)
+            * np.sqrt(config["data_view_dir_noise"])).astype(np.float32)
+    return images, poses, width, height, focal, train_idx
+
+
+def _clock(device):
+    """A point in time: an event on the current CUDA stream, or the host's
+    clock on the CPU."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def train(config, device=None, timed_steps=0, window=None) -> dict:
+    """Train from a resolved config; runs on CUDA unless ``device='cpu'``.
+
+    With ``timed_steps`` > 0 the last that many steps are one timed window:
+    it opens at the top of the first of them, on an idle device, and closes
+    right after the last one (before that iteration's print, checkpoint and
+    image), and everything in between counts.  ``window``, a context manager
+    such as a ``torch.profiler.profile``, is entered for the same steps.
+
+    Returns the state, the metric log, the models, the image geometry and
+    ``window_ms``, the window's time (None when it did not run)."""
+    device = resolve_device(device)
+    set_plain_precision()
+    log_path = log_dir(config)
+    os.makedirs(log_path, exist_ok=True)
+
+    images, poses, width, height, focal, train_idx = load_dataset(config)
+    config["data_train_idx"] = train_idx
+    path = save_config(config, log_path)
+    log_print(f"Config file write to: {path}")
+
+    seed = config.get("seed", 0)
+    host_gen = torch.Generator().manual_seed(seed)
+    dev_gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    buf = build_ray_buffer(images["train"], poses["train"], width, height,
+                           focal, host_gen, device)
+    startup_buf = (build_startup_buffer(images["train"], poses["train"],
+                                        width, height, focal, device)
+                   if config["start_up_itrs"] > 0 else None)
+    batch_size = config["batch_size"]
+    n_rays = buf.shape[0]
+    batch_num = int(np.ceil(n_rays / batch_size))
+    log_print(f"Batching Finished: size={tuple(buf.shape)}, "
+              f"batch_size={batch_size}, batch_num={batch_num}")
+
+    # One Adam over both models, as the reference concatenates the
+    # parameter lists (nerf/train_nerf.py:95-98).
+    models = {"coarse": nerf_model(config["use_siren"], generator=host_gen)}
+    if config["use_fine_model"]:
+        models["fine"] = nerf_model(config["use_siren"], generator=host_gen)
+    for m in models.values():
+        m.to(device)
+    coarse_model = models["coarse"]
+    fine_model = models.get("fine", coarse_model)
+    params = [p for m in models.values() for p in m.parameters()]
+    opt = common.adam(params, common.exponential_lr(
+        config["learning_rate"], config["learning_rate_decay"]))
+    state = common.init_state(models, opt)
+    global_step, state = common.resume(log_path, state)
+
+    step_fn = make_train_step(coarse_model, fine_model, opt, config, device)
+    logger = MetricLogger(["loss", "psnr"])
+    if global_step > 0:
+        log_file = os.path.join(log_path, "log.npy")
+        if os.path.exists(log_file):
+            logger.preload(MetricLogger.load(log_file), global_step)
+
+    batch_idx = 0
+    iterations = config["iterations"]
+    window_start = iterations - timed_steps if timed_steps > 0 else None
+    opened = closed = None
+    # the window's context is closed with it, or here if a step raises
+    with contextlib.ExitStack() as stack:
+        while global_step < iterations:
+            if global_step == window_start:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                if window is not None:
+                    stack.enter_context(window)
+                opened = _clock(device)
+            # Epoch boundary: a real reshuffle.
+            if (global_step >= config["start_up_itrs"]
+                    and (batch_idx + 1) * batch_size > n_rays):
+                perm = torch.randperm(n_rays, generator=host_gen)
+                buf = buf[perm.to(buf.device)]
+                batch_idx = 0
+
+            if global_step + 1 <= config["start_up_itrs"]:
+                batch = sample_startup_batch(startup_buf, host_gen,
+                                             batch_size)
+            else:
+                lo = batch_idx * batch_size
+                batch = buf[lo:lo + batch_size]
+                batch_idx += 1
+            global_step += 1
+            state["step"] = global_step
+            m = step_fn(batch, generator=dev_gen)
+            logger.append(loss=m["loss"], psnr=m["psnr"])
+            if opened is not None and global_step == iterations:
+                closed = _clock(device)
+                stack.close()
+
+            if global_step % config["i_print"] == 0:
+                rate = config["i_print"] / max(logger.step_time(), 1e-9)
+                log_print(f"[Train] Iter: {global_step} "
+                          f"Loss: {float(m['loss'])} PSNR: {float(m['psnr'])} "
+                          f"({rate:.1f} steps/s)")
+            if global_step % config["i_save"] == 0:
+                # log before ckpt: resume truncates a log that ran ahead
+                logger.save(log_path)
+                p = ckpt_lib.save(log_path, global_step,
+                                  common.state_dict(state))
+                log_print(f"Saved checkpoints at {p}")
+            if global_step % config["i_image"] == 0:
+                frame = render_eval_image(config, coarse_model, fine_model,
+                                          width, height, focal, dev_gen,
+                                          device=device)
+                image_io.imwrite(
+                    os.path.join(log_path, f"{global_step:06d}.png"), frame)
+
+    logger.save(log_path)
+    window_ms = None
+    if closed is not None:
+        if device.type == "cuda":
+            closed.synchronize()
+            window_ms = opened.elapsed_time(closed)
+        else:
+            window_ms = 1e3 * (closed - opened)
+    return {"state": state, "log": logger.data,
+            "models": (coarse_model, fine_model),
+            "geometry": (width, height, focal), "window_ms": window_ms}
+
+
+def render_eval_image(config, coarse_model, fine_model, width, height, focal,
+                      generator=None, pose=None, device=None):
+    """Eval render from the fixed pose (4, 0, 0) with the plain models
+    (ref: nerf/train_nerf.py:191-201)."""
+    if pose is None:
+        pose = ray_ops.camera_pose_deg(4.0, 0.0, 0.0)
+    fine = fine_model if config["use_fine_model"] else coarse_model
+    rgb, _, _ = render_image(
+        width, height, focal, pose, config["render_near"],
+        config["render_far"], coarse_model, fine,
+        config["render_coarse_sample_num"], config["render_fine_sample_num"],
+        generator=generator, device=device)
+    return rgb.cpu().numpy()
+
+
+def main(argv=None):
+    config = common.parse_cli(argv if argv is not None else sys.argv[1:],
+                              NERF_TRAIN_DEFAULTS)
+    train(config)
+
+
+if __name__ == "__main__":
+    main()
