@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (msra_practice_project_tpu_torch) on
 one NVIDIA GPU.
 
-Phases, one line each; any failure exits non-zero:
+Phases; any failure exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the sources
-     in this checkout;
-  2. hold each kernel against its plain PyTorch version at the coarse- and
+     in this checkout, one nvcc per source, all started together;
+NeRF (K1, K2):
+  2. hold K1 and K2 against their plain PyTorch versions at the coarse- and
      fine-pass shapes (65,536 and 196,608 points), in fp32 and in bf16, and
-     check that the backward is bitwise reproducible;
-  3. the main path: `train_nerf.train` on the lego recipe (1024 rays, 64+128
+     check that K2 is bitwise reproducible;
+  3. the NeRF path: `train_nerf.train` on the lego recipe (1024 rays, 64+128
      samples, full-width NeRF) for 30 iterations, 10 of them start-up, on the
      synthetic Blender scene; both kernels must be launched twice per step.
      Its last 20 steps are one timed window (CUDA events): ms/step and
@@ -17,8 +18,23 @@ Phases, one line each; any failure exits non-zero:
      its timed window: the device's busy time, the window's wall time and
      idle share, and the device time by kernel, all from that one window
      (the profiler's own host cost shows as the gap to phase 3's ms/step);
-  5. per-kernel times at the coarse and fine shapes beside the plain version
-     and the least time the card could take.
+  5. K1 and K2 per launch at both shapes beside the plain version and the
+     least time the card could take;
+pi-GAN (K7, K8):
+  6. hold K8 and K7 against their plain versions at the G step's two trunk
+     shapes (64 images of 8,192 and of 24,576 points), in fp32 and bf16, K7
+     with and without dx, and check that K7 is bitwise reproducible;
+  7. the pi-GAN path: `train_pigan.train` on configs/pi_gan/test.json in
+     the default trunk mode 1 (plain forward, K7 backward) through both
+     stages (iterations [20, 30], fade-in [0, 5]); K7 must be launched once
+     per iteration and K8 never.  Iterations 11-20 (stage 0) are one timed
+     window: ms per iteration (a D step and a G step) and images/s;
+  8. the same recipe in mode 2 (K8 forward, K7 backward), 8 iterations of
+     stage 0, the last 4 timed; K8 4 launches and K7 1 per iteration;
+  9. both modes again for 6 iterations with torch.profiler on for the last
+     3: busy, idle share and the time by kernel;
+ 10. K8 and K7 per launch at both shapes beside the plain version and the
+     least time the card could take.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 
@@ -155,6 +171,122 @@ def check_kernels(torch, K, n):
     return report
 
 
+# pi-GAN at test.json's stage 0: 64 images of 32x32 rays, 8 coarse and
+# 8 + 16 fine samples per ray
+FILM_B, FILM_COARSE_P, FILM_FINE_P = 64, 32 * 32 * 8, 32 * 32 * 24
+FILM_SLICE = 16   # images per slice of the plain versions on the card
+
+
+def film_inputs(torch, FK, n_img, n_pts, seed=0):
+    """The G step's trunk inputs at stage 0: points on rays of random poses
+    from the pose prior (radius 1, near 0.5, far 1.5, 32x32 pixels, fov
+    12), film from the mapping network of random latents, a generator with
+    random weights, and an output gradient."""
+    from msra_practice_project_tpu_torch.models import pigan
+
+    g = torch.Generator().manual_seed(seed)
+    gen = pigan.Generator(pigan.GeneratorConfig(), generator=g)
+    z = torch.randn(n_img, gen.cfg.z_dim, generator=g)
+    theta, phi = gen.sample_poses(n_img, g)
+    with torch.no_grad():
+        film = gen.mapping(z)
+    res, n_s = 32, n_pts // (32 * 32)
+    focal = res / 2.0 / torch.tan(torch.tensor(6.0 * 3.141592653589793 / 180))
+    from msra_practice_project_tpu_torch.ops.rays import get_rays_flat
+    ro, rd = get_rays_flat(res, res, focal, pigan.camera_poses(theta, phi))
+    zv = 0.5 + torch.rand(n_img, res * res, n_s, generator=g).sort(-1)[0]
+    pts = ro[..., None, :] + rd[..., None, :] * zv[..., None]
+    dirs = (rd / rd.norm(dim=-1, keepdim=True))[..., None, :].expand(
+        pts.shape)
+    x = torch.cat([pts, dirs], -1).reshape(n_img, n_pts, 6)
+    packed = FK.pack_film_params(dict(gen.trunk.named_parameters()), True)
+    w = [packed[k].detach() for k in FK.PACK_KEYS]
+    dy = torch.randn(n_img, n_pts, FK.OUT_PAD, generator=g) * 1e-3
+    dy[..., 4:] = 0
+    return FK.pad_points(x, n_img)[0], film.contiguous(), w, dy
+
+
+def film_plain_sliced(torch, FK, x, film, dy, wk, bf16, need_dx):
+    """The plain K8 and K7 over slices of FILM_SLICE images (the whole
+    batch's activations would not fit on the card): out, dx, dfilm
+    concatenated, the packed gradients summed in fp32."""
+    outs, dxs, dfilms, grads = [], [], [], None
+    for lo in range(0, x.shape[0], FILM_SLICE):
+        sl = slice(lo, lo + FILM_SLICE)
+        outs.append(FK.film_mlp_fwd_plain(x[sl], film[sl], wk, bf16))
+        dx, dfilm, g = FK.film_mlp_bwd_plain(x[sl], film[sl], dy[sl], wk,
+                                             bf16, need_dx)
+        dxs.append(dx)
+        dfilms.append(dfilm)
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+    return (torch.cat(outs), torch.cat(dxs) if need_dx else None,
+            torch.cat(dfilms), grads)
+
+
+def check_film(torch, FK, n_img, n_pts):
+    """K8 and K7 against their plain versions on the card, same inputs, in
+    fp32 and bf16, K7 with need_dx False and True; two K7 launches must be
+    bitwise equal.  Returns the bf16 mode's max |kernel - plain| per
+    kernel."""
+    x, film, w, dy = film_inputs(torch, FK, n_img, n_pts)
+    x, film, dy = x.cuda(), film.cuda(), dy.cuda()
+    report = {}
+    for bf16 in (False, True):
+        wk = [t.cuda() for t in FK.kernel_weights(w, bf16)]
+        out_k = FK.film_mlp_fwd(x, film, wk, bf16)
+        runs = {nd: [FK.film_mlp_bwd(x, film, dy, wk, bf16, nd)
+                     for _ in range(2)] for nd in (False, True)}
+        out_p, dx_p, dfilm_p, g_p = film_plain_sliced(torch, FK, x, film, dy,
+                                                      wk, bf16, True)
+        torch.cuda.synchronize()
+        res = {"out": (out_k, out_p), "dx": (runs[True][0][0], dx_p),
+               "dfilm": (runs[True][0][1], dfilm_p),
+               **{k: (a, b) for k, a, b in zip(FK.PACK_KEYS,
+                                               runs[True][0][2], g_p)}}
+        same = all(
+            torch.equal(a, b) for nd in (False, True)
+            for a, b in zip([runs[nd][0][1], *runs[nd][0][2]],
+                            [runs[nd][1][1], *runs[nd][1][2]]))
+        nodx_same = (runs[False][0][0] is None and torch.equal(
+            runs[False][0][1], runs[True][0][1]) and all(
+                torch.equal(a, b) for a, b in zip(runs[False][0][2],
+                                                  runs[True][0][2])))
+        worst, worst_key, max_abs = {}, {}, {"fwd": 0.0, "bwd": 0.0}
+        for key, (a, b) in res.items():
+            kern = "fwd" if key == "out" else "bwd"
+            err = float((a - b).abs().max())
+            max_abs[kern] = max(max_abs[kern], err)
+            r = (rel_frob(a, b) if bf16 else
+                 err / max(float(b.abs().max()), 1e-30))
+            if r >= worst.get(kern, -1.0):
+                worst[kern], worst_key[kern] = r, key
+            print(f"    bf16={bf16} {key:5s} max|err| {err:.3e} "
+                  f"{'rel frob' if bf16 else 'err/max'} {r:.3e} max|ref| "
+                  f"{float(b.abs().max()):.3e}", flush=True)
+        gate = FILM_GATES[bf16]
+        ok = (worst["fwd"] <= gate["fwd"] and worst["bwd"] <= gate["bwd"]
+              and same and nodx_same)
+        print(f"  bf16={bf16}: K8 worst {worst['fwd']:.3e} (gate "
+              f"{gate['fwd']:g}); K7 worst {worst['bwd']:.3e} at "
+              f"{worst_key['bwd']} (gate {gate['bwd']:g}); bitwise repeat "
+              f"{same}; need_dx=False same grads {nodx_same} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit("K7/K8 disagree with their plain versions")
+        if bf16:
+            report = {"film_mlp_fwd": max_abs["fwd"],
+                      "film_mlp_bwd": max_abs["bwd"]}
+        del runs, res, out_k, out_p, dx_p, dfilm_p, g_p
+        torch.cuda.synchronize()
+    return report
+
+
+# Gates of the K7/K8 checks (PERF.md §2): fp32 max |err| over max |ref| per
+# tensor; bf16 relative Frobenius norm per tensor.
+FILM_GATES = {False: {"fwd": 1e-4, "bwd": 1e-3},
+              True: {"fwd": 2e-2, "bwd": 5e-2}}
+
+
 def time_ms(torch, fn, reps):
     """Median of `reps` CUDA-event timings of fn(), after two warm-ups."""
     for _ in range(2):
@@ -259,10 +391,17 @@ def run_train(torch, iterations, startup, timed, window=None):
             png)
 
 
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from msra_practice_project_tpu_torch.ops.kernels import film_mlp, nerf_mlp
+    for mod in (nerf_mlp, film_mlp):
+        mod.reset_launch_counts()
+
+
 def main_path(torch, K, iterations, startup, timed):
     """The main path with every launch counter set to 0 just before it and
     read just after; both kernels must run twice per step."""
-    K.reset_launch_counts()
+    reset_counts()
     ms, batch, log, ckpt, png = run_train(torch, iterations, startup, timed)
     launches = {k.__name__: k.launches for k in K.KERNELS}
     losses = log["loss"]
@@ -279,22 +418,19 @@ def main_path(torch, K, iterations, startup, timed):
     return launches, ms, rays
 
 
-def profiled_window(torch, iterations, startup, timed):
-    """The same train run with torch.profiler (device activity only) on for
-    the timed window: the device's busy time (union of its kernel
-    intervals), the window's wall time and idle share, and the time by
-    kernel, all from that one window."""
-    from torch.profiler import ProfilerActivity, profile
+def is_port_kernel(name: str) -> bool:
+    """A kernel of the port's csrc/*.cu (its anonymous namespace or
+    tile_mm.cuh), not one of PyTorch's or cuDNN's."""
+    return name.startswith(("void (anonymous namespace)::", "tile_mm::",
+                            "void tile_mm::"))
 
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    ms = run_train(torch, iterations, startup, timed, window=prof)[0]
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = [(e["name"], e["ts"], e["dur"])
-                      for e in json.load(f)["traceEvents"]
-                      if e.get("cat") == "kernel" and "dur" in e]
+
+def profile_report(prof, timed, ms, unit):
+    """From a torch.profiler run over a window of `timed` steps that took
+    `ms` per step: the device's busy time per step (union of its kernel
+    intervals) and the window's idle share; prints them with the time of
+    the port's kernels and the largest kernels by name."""
+    events = device_kernels(prof)
     if not events:
         raise SystemExit("the profiler saw no device kernel in the window")
     busy_us, end = 0.0, float("-inf")
@@ -308,14 +444,153 @@ def profiled_window(torch, iterations, startup, timed):
         by_name[name] = (t + dur / 1e3, n + 1)
     busy = busy_us / 1e3 / timed
     idle = max(0.0, 1 - busy / ms)
-    print(f"  window of the last {timed} steps, profiler on: {ms:.3f} "
-          f"ms/step; device busy {busy:.3f} ms/step, idle share "
-          f"{idle:.3f}", flush=True)
+    port = sum(t for name, (t, _) in by_name.items()
+               if is_port_kernel(name)) / timed
+    print(f"  window of {timed} {unit}s, profiler on: {ms:.3f} ms/{unit}; "
+          f"device busy {busy:.3f} ms/{unit} ({port:.3f} of it the port's "
+          f"kernels), idle share {idle:.3f}", flush=True)
     rows = sorted(((t / timed, n / timed, name)
                    for name, (t, n) in by_name.items()), reverse=True)
     for t, n, name in rows[:12]:
-        print(f"  {t:8.4f} ms/step  x{n:<4g} {name[:100]}", flush=True)
+        print(f"  {t:8.4f} ms/{unit}  x{n:<5g} {name[:100]}", flush=True)
+    return busy, idle
+
+
+def profiled_window(torch, iterations, startup, timed):
+    """The same train run with torch.profiler (device activity only) on for
+    the timed window: busy, wall and idle share of that one window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    ms = run_train(torch, iterations, startup, timed, window=prof)[0]
+    busy, idle = profile_report(prof, timed, ms, "step")
     return ms, busy, idle
+
+
+# The fp32 CUDA-core peak of an H100 SXM (NVIDIA data sheet), for the
+# polynomial sines: 15 fp32 operations each, derivative or value
+# (csrc/film_mlp.cu: 6 of range reduction, 9 of polynomial).
+FP32_FLOP_PER_S = 67e12
+SINE_OPS = 15
+
+
+def film_macs():
+    """Multiply-adds per point of the FiLM trunk (unpadded): K8's forward,
+    and K7's (recomputed forward, the dh chain, dW; no dx)."""
+    fwd = 3 * 256 + 7 * 256 * 256 + 256 * 256 + 3 * 256 + 256 * 1 + 256 * 3
+    chain = 256 * 3 + 256 * 256 + 256 * 1 + 7 * 256 * 256
+    return fwd, 2 * fwd + chain
+
+
+def film_bounds(FK, n_img, n_pts, w):
+    """(K8 ms, K8 bound_by, K7 ms, K7 bound_by): the least time for the work
+    of one launch, the larger of its bytes over HBM's rate, its MACs over
+    the bf16 tensor-core rate and its sines over the fp32 rate."""
+    wbytes = sum(t.numel() * t.element_size() for t in w)
+    film_bytes = n_img * FK.N_FILM * 2 * FK.HID * 4
+    n = n_img * n_pts
+    fwd_macs, bwd_macs = film_macs()
+    out = []
+    for b, macs, sines in (
+            (n * 64 + wbytes + film_bytes, fwd_macs, 2304),
+            (n * 64 + wbytes + 2 * film_bytes + FK.GRAD_TOTAL * 4, bwd_macs,
+             2 * 2304)):
+        t = {"bytes": b / HBM_BYTES_PER_S * 1e3,
+             "operations": max(2 * macs * n / BF16_FLOP_PER_S,
+                               SINE_OPS * sines * n / FP32_FLOP_PER_S) * 1e3}
+        by = max(t, key=t.get)
+        out += [t[by], by]
+    return out
+
+
+def time_film(torch, FK, n_img, n_pts, reps):
+    """K8 and K7 (bf16, need_dx=False as the generator calls it) per launch
+    beside their plain versions (sliced over images) and their bounds."""
+    x, film, w, dy = film_inputs(torch, FK, n_img, n_pts, seed=1)
+    x, film, dy = x.cuda(), film.cuda(), dy.cuda()
+    wk = [t.cuda() for t in FK.kernel_weights(w, True)]
+
+    def plain_fwd():
+        for lo in range(0, n_img, FILM_SLICE):
+            sl = slice(lo, lo + FILM_SLICE)
+            FK.film_mlp_fwd_plain(x[sl], film[sl], wk, True)
+
+    res = {
+        "fwd_ms": time_ms(torch, lambda: FK.film_mlp_fwd(x, film, wk, True),
+                          reps),
+        "fwd_plain_ms": time_ms(torch, plain_fwd, 3),
+        "bwd_ms": time_ms(torch, lambda: FK.film_mlp_bwd(
+            x, film, dy, wk, True, False), reps),
+        "bwd_plain_ms": time_ms(torch, lambda: film_plain_sliced(
+            torch, FK, x, film, dy, wk, True, False), 3),
+    }
+    b1, by1, b2, by2 = film_bounds(FK, n_img, n_pts, wk)
+    res.update(fwd_bound_ms=b1, fwd_bound_by=by1, bwd_bound_ms=b2,
+               bwd_bound_by=by2)
+    return res
+
+
+def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
+    """train_pigan.train on configs/pi_gan/test.json with `overrides`, in
+    trunk mode `mode` (MSRA_TPU_FUSED_FILM), in a temporary directory; the
+    launch counters are set to 0 just before it and read just after.
+    Iterations window_end - timed + 1 .. window_end are one window timed
+    with CUDA events, with `window` entered for them.  Returns (ms per iteration, launches, loss log,
+    checkpoint written, PNG written)."""
+    from msra_practice_project_tpu_torch.core.config import (
+        CONFIG_ROOT, PIGAN_TRAIN_DEFAULTS, load_config, resolve)
+    from msra_practice_project_tpu_torch.train import train_pigan
+
+    cfg = resolve(load_config(os.path.join(CONFIG_ROOT, "pi_gan",
+                                           "test.json")),
+                  PIGAN_TRAIN_DEFAULTS)
+    old = os.environ.get("MSRA_TPU_FUSED_FILM")
+    os.environ["MSRA_TPU_FUSED_FILM"] = str(mode)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+            cfg.update(output_path=out_dir, experiment_name="pigan_smoke",
+                       **overrides)
+            reset_counts()
+            res = train_pigan.train(cfg, timed_steps=timed,
+                                    window_end=window_end, window=window)
+            torch.cuda.synchronize()
+            launches = {k.__name__: k.launches for k in FK.KERNELS}
+            last = cfg["iterations"][-1]
+            log = os.path.join(out_dir, "pigan_smoke")
+            ckpt = os.path.exists(os.path.join(log, f"{last:06d}.ckpt"))
+            png = os.path.exists(os.path.join(log, f"{last:06d}.png"))
+    finally:
+        if old is None:
+            os.environ.pop("MSRA_TPU_FUSED_FILM")
+        else:
+            os.environ["MSRA_TPU_FUSED_FILM"] = old
+    return res["window_ms"] / timed, launches, res["loss_log"], ckpt, png
+
+
+def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
+               files=False):
+    """One pi-GAN run; fails unless every loss is finite, each kernel
+    launched `want[name]` times per iteration and, with `files`, the last
+    iteration wrote its checkpoint and its demo grid."""
+    ms, launches, log, ckpt, png = run_pigan(torch, FK, mode, overrides,
+                                             timed, window_end)
+    n_it = overrides["iterations"][-1]
+    batch = overrides.get("batch_size", [64])[0]
+    losses = log["d_loss"] + log["g_loss"]
+    finite = (len(losses) == 2 * n_it
+              and all(v == v and abs(v) != float("inf") for v in losses))
+    per_it = {k: v / n_it for k, v in launches.items()}
+    print(f"  mode {mode}: d_loss first/last {log['d_loss'][0]:.4f}/"
+          f"{log['d_loss'][-1]:.4f}, g_loss first/last "
+          f"{log['g_loss'][0]:.4f}/{log['g_loss'][-1]:.4f}, finite {finite}, "
+          f"launches {launches} ({per_it} per iteration), ckpt {ckpt}, "
+          f"png {png}", flush=True)
+    print(f"  mode {mode}: window of iterations {window_end - timed + 1}-"
+          f"{window_end} (CUDA events): {ms:.3f} ms/iteration, "
+          f"{batch / (ms / 1e3):.1f} images/s", flush=True)
+    if not (finite and per_it == want and (ckpt and png or not files)):
+        raise SystemExit(f"pi-GAN mode {mode} check failed")
+    return ms, launches, ckpt, png
 
 
 def main() -> int:
@@ -325,6 +600,7 @@ def main() -> int:
         return 2
     try:
         from msra_practice_project_tpu_torch.ops.kernels import build
+        from msra_practice_project_tpu_torch.ops.kernels import film_mlp as FK
         from msra_practice_project_tpu_torch.ops.kernels import nerf_mlp as K
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -339,19 +615,20 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    lib = build.load("nerf_mlp")
-    print(f"  built {os.path.basename(lib._name)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    libs = build.load_all(["nerf_mlp", "film_mlp"])
+    print(f"  built {', '.join(os.path.basename(l._name) for l in libs)} "
+          f"({time.perf_counter() - t0:.1f} s, in parallel)", flush=True)
     torch.cuda.synchronize()
+    summary, kernels = {}, []
 
     errs = {}
     for n in (COARSE_N, FINE_N):
-        phase(f"kernels vs plain versions at N={n}")
+        phase(f"K1/K2 vs plain versions at N={n}")
         for name, err in check_kernels(torch, K, n).items():
             errs[name] = max(err, errs.get(name, 0.0))
         torch.cuda.synchronize()
 
-    phase("main path: train_nerf.train, lego recipe, 30 iterations")
+    phase("NeRF main path: train_nerf.train, lego recipe, 30 iterations")
     launches, step_ms, rays = main_path(torch, K, 30, 10, 20)
     torch.cuda.synchronize()
 
@@ -359,7 +636,7 @@ def main() -> int:
     prof_ms, busy, idle = profiled_window(torch, 30, 10, 20)
     torch.cuda.synchronize()
 
-    phase("kernel timings (bf16, CUDA events, median)")
+    phase("K1/K2 timings (bf16, CUDA events, median)")
     times = {}
     for label, n in (("coarse", COARSE_N), ("fine", FINE_N)):
         times[label] = time_kernels(torch, K, n, 25)
@@ -370,36 +647,113 @@ def main() -> int:
               f"{t['bwd_plain_ms']:.4f}, bound {t['bwd_bound_ms']:.4f} "
               f"{t['bwd_bound_by']})", flush=True)
         torch.cuda.synchronize()
-
     src = "msra_practice_project_tpu_torch/ops/kernels/csrc/nerf_mlp.cu"
-    kernels = []
     for name, pre, replaces in (
             ("nerf_mlp_fwd_save", "fwd",
              "msra_practice_project_tpu/ops/pallas/nerf_mlp.py:336"),
             ("nerf_mlp_bwd_saved", "bwd",
              "msra_practice_project_tpu/ops/pallas/nerf_mlp.py:353")):
-        c, f = times["coarse"], times["fine"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": c[f"{pre}_ms"],
-            "plain_ms": c[f"{pre}_plain_ms"], "bound_ms": c[f"{pre}_bound_ms"],
-            "bound_by": c[f"{pre}_bound_by"], "library_ms": None,
-            "shape": f"N={COARSE_N} (coarse pass)",
-            "fine": {"shape": f"N={FINE_N}", "ms": f[f"{pre}_ms"],
-                     "plain_ms": f[f"{pre}_plain_ms"],
-                     "bound_ms": f[f"{pre}_bound_ms"],
-                     "bound_by": f[f"{pre}_bound_by"]},
-        })
-    print(json.dumps({"train_step_ms": step_ms, "train_rays_per_s": rays,
-                      "profiled_step_ms": prof_ms, "device_busy_ms": busy,
-                      "profiled_idle_share": idle}))
+        kernels.append(kernel_entry(
+            name, src, replaces, launches[name], errs[name], times, pre,
+            f"N={COARSE_N} (coarse pass)", f"N={FINE_N}",
+            "train_nerf, lego recipe"))
+    summary.update(nerf_step_ms=step_ms, nerf_rays_per_s=rays,
+                   nerf_profiled_step_ms=prof_ms, nerf_device_busy_ms=busy,
+                   nerf_profiled_idle_share=idle)
+
+    film_errs = {}
+    for n_pts in (FILM_COARSE_P, FILM_FINE_P):
+        phase(f"K7/K8 vs plain versions at B={FILM_B}, P={n_pts}")
+        for name, err in check_film(torch, FK, FILM_B, n_pts).items():
+            film_errs[name] = max(err, film_errs.get(name, 0.0))
+        torch.cuda.synchronize()
+
+    phase("pi-GAN main path: train_pigan.train, test.json, mode 1 "
+          "(hybrid), iterations [20, 30], fade-in [0, 5]")
+    ms1, launches1, _, _ = pigan_path(
+        torch, FK, 1, dict(iterations=[20, 30], fade_in_itrs=[0, 5],
+                           i_print=10, i_save=30, i_image=30),
+        10, 20, {"film_mlp_fwd": 0.0, "film_mlp_bwd": 1.0}, files=True)
+    torch.cuda.synchronize()
+    phase("pi-GAN mode 2 (K8 forward): stage 0, 8 iterations")
+    ms2, launches2, _, _ = pigan_path(
+        torch, FK, 2, dict(iterations=[8], fade_in_itrs=[0],
+                           batch_size=[64], resolution=[32], i_print=4,
+                           i_save=1000, i_image=1000),
+        4, 8, {"film_mlp_fwd": 4.0, "film_mlp_bwd": 1.0})
+    torch.cuda.synchronize()
+    print(f"  ms/iteration at stage 0: mode 1 {ms1:.3f}, mode 2 "
+          f"{ms2:.3f}", flush=True)
+    summary.update(pigan_mode1_ms_per_iter=ms1,
+                   pigan_mode1_images_per_s=64 / (ms1 / 1e3),
+                   pigan_mode2_ms_per_iter=ms2,
+                   pigan_mode2_images_per_s=64 / (ms2 / 1e3))
+
+    from torch.profiler import ProfilerActivity, profile
+    for mode in (1, 2):
+        phase(f"profile: pi-GAN mode {mode}, stage 0, 6 iterations, "
+              "torch.profiler on for the last 3")
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        ms = run_pigan(torch, FK, mode, dict(
+            iterations=[6], fade_in_itrs=[0], batch_size=[64],
+            resolution=[32], i_print=3, i_save=1000, i_image=1000), 3, 6,
+            window=prof)[0]
+        busy, idle = profile_report(prof, 3, ms, "iteration")
+        summary.update({f"pigan_mode{mode}_profiled_ms_per_iter": ms,
+                        f"pigan_mode{mode}_device_busy_ms": busy,
+                        f"pigan_mode{mode}_profiled_idle_share": idle})
+        torch.cuda.synchronize()
+
+    phase("K7/K8 timings (bf16, CUDA events, median)")
+    ftimes = {}
+    for label, n_pts in (("coarse", FILM_COARSE_P),
+                         ("fine", FILM_FINE_P)):
+        ftimes[label] = t = time_film(torch, FK, FILM_B, n_pts, 10)
+        print(f"  {label} B={FILM_B} P={n_pts}: K8 {t['fwd_ms']:.4f} ms "
+              f"(plain {t['fwd_plain_ms']:.4f}, bound "
+              f"{t['fwd_bound_ms']:.4f} {t['fwd_bound_by']}); K7 "
+              f"{t['bwd_ms']:.4f} ms (plain {t['bwd_plain_ms']:.4f}, "
+              f"bound {t['bwd_bound_ms']:.4f} {t['bwd_bound_by']})",
+              flush=True)
+        torch.cuda.synchronize()
+    src = "msra_practice_project_tpu_torch/ops/kernels/csrc/film_mlp.cu"
+    for name, pre, replaces, launches, path in (
+            ("film_mlp_bwd", "bwd",
+             "msra_practice_project_tpu/ops/pallas/film_mlp.py:206",
+             launches1["film_mlp_bwd"], "train_pigan, test.json, mode 1"),
+            ("film_mlp_fwd", "fwd",
+             "msra_practice_project_tpu/ops/pallas/film_mlp.py:160",
+             launches2["film_mlp_fwd"], "train_pigan, test.json, mode 2")):
+        kernels.append(kernel_entry(
+            name, src, replaces, launches, film_errs[name], ftimes, pre,
+            f"B={FILM_B} P={FILM_COARSE_P} (coarse pass)",
+            f"B={FILM_B} P={FILM_FINE_P}", path))
+
+    print(json.dumps(summary))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_entry(name, src, replaces, launches, err, times, pre, shape,
+                 fine_shape, path):
+    """One kernel's entry of the `kernels` line: the coarse-pass shape's
+    numbers at the top level, the fine pass's under "fine"."""
+    c, f = times["coarse"], times["fine"]
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": c[f"{pre}_ms"],
+        "plain_ms": c[f"{pre}_plain_ms"], "bound_ms": c[f"{pre}_bound_ms"],
+        "bound_by": c[f"{pre}_bound_by"], "library_ms": None, "shape": shape,
+        "launched_by": path,
+        "fine": {"shape": fine_shape, "ms": f[f"{pre}_ms"],
+                 "plain_ms": f[f"{pre}_plain_ms"],
+                 "bound_ms": f[f"{pre}_bound_ms"],
+                 "bound_by": f[f"{pre}_bound_by"]},
+    }
 
 
 if __name__ == "__main__":

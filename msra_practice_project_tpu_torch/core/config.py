@@ -83,6 +83,29 @@ NERF_TRAIN_DEFAULTS = {
 }
 
 
+PIGAN_TRAIN_DEFAULTS = {
+    # pi_GAN/train.py:23-42
+    "render_near": 0.5,
+    "render_far": 1.5,
+    "render_coarse_sample_num": 12,
+    "render_fine_sample_num": 24,
+    "use_dir": True,
+    "z_dim": 1024,
+    "iterations": [50000],
+    "fade_in_itrs": [0],
+    "batch_size": [64],
+    "resolution": [32],
+    "generator_lr": 5e-5,
+    "discriminator_lr": 4e-4,
+    "generator_lr_end": 1e-5,
+    "discriminator_lr_end": 1e-4,
+    "lr_decay": 500,
+    "i_print": 100,
+    "i_save": 10000,
+    "i_image": 1000,
+}
+
+
 def resolve(config: dict, defaults: dict) -> Config:
     """Fill in defaults for missing keys (does not mutate the input).  List
     defaults are copied so a consumer mutating its config cannot corrupt the

@@ -72,5 +72,20 @@ class MetricLogger:
         return np.load(path, allow_pickle=True).item()
 
 
+def flush_scalar_list(vs: list) -> list:
+    """A list of Python floats followed by pending device scalars -> all
+    floats, with one device-to-host transfer for the pending ones."""
+    start = next((i for i, v in enumerate(vs) if not isinstance(v, float)),
+                 len(vs))
+    pend = vs[start:]
+    if not pend:
+        return vs
+    dev = next((v.device for v in pend if torch.is_tensor(v)), "cpu")
+    flat = torch.cat([torch.as_tensor(v, dtype=torch.float32,
+                                      device=dev).reshape(-1)
+                      for v in pend]).cpu()
+    return vs[:start] + flat.tolist()
+
+
 def log_print(msg: str):
     print(msg, flush=True)

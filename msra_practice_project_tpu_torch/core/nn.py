@@ -1,8 +1,14 @@
 """Neural-net primitives (port of ``msra_practice_project_tpu/core/nn.py``):
-Xavier-uniform dense init with the reference's activation gains, and the
-positional encoding with its interleaved ``[sin_i(3), cos_i(3)]`` layout.
+Xavier-uniform dense init with the reference's activation gains, the
+torch-default and FiLM-SIREN inits, the polynomial trunk sine with its
+derivative, the FiLM-SIREN layer, and the positional encoding with its
+interleaved ``[sin_i(3), cos_i(3)]`` layout.
 
-Weights follow ``torch.nn.Linear``: ``[out, in]``.
+Weights follow ``torch.nn.Linear``: ``[out, in]``.  Every init draws from an
+explicit ``torch.Generator`` (weight first, then bias).
+
+The trunk sine is always the polynomial: the JAX package's
+``MSRA_TPU_FAST_SIN=0`` switch (``jnp.sin``) is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +48,87 @@ def dense_init(in_dim: int, out_dim: int, activation: str = "linear",
     with torch.no_grad():
         layer.bias.zero_()
     return layer
+
+
+def torch_linear_default(in_dim: int, out_dim: int,
+                         generator: torch.Generator | None = None,
+                         device=None) -> nn.Linear:
+    """``torch.nn.Linear``'s default init drawn from ``generator``: weight and
+    bias U(+-1/sqrt(in))."""
+    bound = 1.0 / math.sqrt(in_dim)
+    return _uniform_linear(in_dim, out_dim, bound, bound, generator, device)
+
+
+def film_siren_init(in_dim: int, out_dim: int, c: float = 6.0,
+                    w0: float = 30.0, is_first_layer: bool = False,
+                    generator: torch.Generator | None = None,
+                    device=None) -> nn.Linear:
+    """FiLM-SIREN layer init (ref: pi_GAN/modules.py:27-31): weight U(+-1/in)
+    for the first layer, else U(+-sqrt(c/in)/w0); bias U(+-sqrt(1/in))."""
+    w_bound = (1.0 / in_dim) if is_first_layer else math.sqrt(c / in_dim) / w0
+    return _uniform_linear(in_dim, out_dim, w_bound, math.sqrt(1.0 / in_dim),
+                           generator, device)
+
+
+def _uniform_linear(in_dim, out_dim, w_bound, b_bound, generator, device):
+    layer = nn.Linear(in_dim, out_dim, device=device)
+    with torch.no_grad():
+        layer.weight.uniform_(-w_bound, w_bound, generator=generator)
+        layer.bias.uniform_(-b_bound, b_bound, generator=generator)
+    return layer
+
+
+# ---------------------------------------------------------------------------
+# The trunk sine: a degree-7 odd minimax polynomial with exact fp32 range
+# reduction (max abs error 1.8e-6 over [-30, 30]).  The FiLM kernels
+# (ops/kernels/csrc/film_mlp.cu) compute the same steps with the same
+# roundings.  Positional encodings keep the exact torch.sin.
+# ---------------------------------------------------------------------------
+
+_TWO_PI = 6.283185307179586
+_SIN_POLY = (0.99999660, -0.16664824, 0.00830629, -0.00018363)
+
+
+def _sin_reduce(v):
+    """(r, flip): v - round(v / 2 pi) 2 pi reflected into [-pi/2, pi/2], and
+    whether it was reflected.  torch.round rounds half to even, as jnp.round
+    does."""
+    q = torch.round(v * (1.0 / _TWO_PI))
+    r = v - q * _TWO_PI
+    hi, lo = r > 0.5 * math.pi, r < -0.5 * math.pi
+    r = torch.where(hi, math.pi - r, r)
+    r = torch.where(lo, -math.pi - r, r)
+    return r, hi | lo
+
+
+def fast_sin(v: torch.Tensor) -> torch.Tensor:
+    """sin(v) as the range-reduced degree-7 odd minimax polynomial."""
+    r, _ = _sin_reduce(v)
+    r2 = r * r
+    c1, c3, c5, c7 = _SIN_POLY
+    return r * (c1 + r2 * (c3 + r2 * (c5 + r2 * c7)))
+
+
+def trunk_sin(v: torch.Tensor) -> torch.Tensor:
+    """The sine of the SIREN/FiLM activation trunks."""
+    return fast_sin(v)
+
+
+def trunk_sin_vjp(v: torch.Tensor) -> torch.Tensor:
+    """d trunk_sin(v) / dv, consistent with autograd of ``trunk_sin``: the
+    polynomial's derivative, its sign flipped on the reflected branches."""
+    r, flip = _sin_reduce(v)
+    r2 = r * r
+    c1, c3, c5, c7 = _SIN_POLY
+    dp = c1 + r2 * (3 * c3 + r2 * (5 * c5 + r2 * (7 * c7)))
+    return torch.where(flip, -dp, dp)
+
+
+def film_siren_apply(layer: nn.Linear, x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, w0: float = 30.0) -> torch.Tensor:
+    """sin(w0 * (gamma * (x W^T + b) + beta)); gamma/beta broadcast against
+    the feature axis."""
+    return trunk_sin(w0 * (gamma * layer(x) + beta))
 
 
 def positional_encoding(x: torch.Tensor, length: int) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for Hopper (``sm_90a``) into a shared library that ``ctypes`` loads, at first
 use, into ``build/`` beside this file.  The library's file name carries a hash
-of its source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  ``load_all``
+starts one ``nvcc`` per missing library, all at once.
 
 Not built with ``--use_fast_math``: the NeRF positional encoding feeds sines
 with arguments up to ~2^9 |x| (thousands of radians), where the fast
@@ -38,26 +39,43 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def load_all(names) -> list:
+    """The loaded libraries for ``csrc/<name>.cu``, one per name; the missing
+    ones are built first, one ``nvcc`` each, all started together."""
+    todo = [n for n in names
+            if n not in _LIBS and not os.path.exists(_lib_path(n))]
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        jobs = []
+        for n in todo:
+            tmp = f"{_lib_path(n)}.{os.getpid()}.tmp"
+            jobs.append((n, tmp, subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(CSRC, n + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for n, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {n}.cu:\n{out}")
+            else:
+                os.replace(tmp, _lib_path(n))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    for n in names:
+        if n not in _LIBS:
+            _LIBS[n] = ctypes.CDLL(_lib_path(n))
+    return [_LIBS[n] for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            res = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                 os.path.join(CSRC, name + ".cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        _LIBS[name] = lib
-    return lib
+    return load_all([name])[0]

@@ -76,8 +76,9 @@ def pose_to_camera_pos(c2w):
 def get_rays(width: int, height: int, focal, c2w: torch.Tensor):
     """Pinhole rays for every pixel (ref: nerf/render.py:7-23).
 
-    Returns (rays_o, rays_d), each ``[H, W, 3]``, on ``c2w``'s device, in
-    row-major pixel order.
+    ``c2w`` is ``[4, 4]`` or a batch ``[..., 4, 4]``.  Returns (rays_o,
+    rays_d), each ``[..., H, W, 3]``, on ``c2w``'s device, in row-major pixel
+    order.
     """
     c2w = torch.as_tensor(c2w, dtype=torch.float32)
     dev = c2w.device
@@ -89,12 +90,14 @@ def get_rays(width: int, height: int, focal, c2w: torch.Tensor):
     dirs = torch.stack(
         [(i - width * 0.5) / focal, -(j - height * 0.5) / focal,
          -torch.ones_like(i)], dim=-1)
-    rays_d = dirs @ c2w[:3, :3].T
-    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    batch = c2w.shape[:-2]
+    rays_d = (dirs.reshape(-1, 3) @ c2w[..., :3, :3].transpose(-1, -2)
+              ).reshape(*batch, height, width, 3)
+    rays_o = c2w[..., None, None, :3, -1].expand(rays_d.shape)
     return rays_o, rays_d
 
 
 def get_rays_flat(width: int, height: int, focal, c2w):
-    """``[H*W, 3]`` origins and directions."""
+    """``[..., H*W, 3]`` origins and directions."""
     o, d = get_rays(width, height, focal, c2w)
-    return o.reshape(-1, 3), d.reshape(-1, 3)
+    return o.reshape(*o.shape[:-3], -1, 3), d.reshape(*d.shape[:-3], -1, 3)

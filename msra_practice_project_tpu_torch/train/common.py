@@ -1,6 +1,6 @@
 """Shared trainer plumbing (port of
-``msra_practice_project_tpu/train/common.py``): learning-rate schedule, Adam,
-train state, resume and CLI.
+``msra_practice_project_tpu/train/common.py``): learning-rate schedules,
+Adam, train state, resume, parameter counts and CLI.
 
 Every driver is ``python -m msra_practice_project_tpu_torch.train.<name>
 <config.json> [key=value ...]``.
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import sys
+import time
 
 import torch
 
@@ -23,6 +24,16 @@ def exponential_lr(base_lr: float, decay_thousands: float,
     per-step decay (nerf/train_nerf.py:170-176)."""
     def schedule(step):
         return base_lr * decay_rate ** (step / (decay_thousands * 1000.0))
+    return schedule
+
+
+def interp_lr(lr0: float, lr_end: float, decay_thousands: float,
+              decay_rate: float = 0.1):
+    """lr_end + (lr0 - lr_end) * rate^(step / (decay_thousands * 1000)) —
+    the pi-GAN dual decay (pi_GAN/train.py:138-147)."""
+    def schedule(step):
+        return lr_end + (lr0 - lr_end) * decay_rate ** (
+            step / (decay_thousands * 1000.0))
     return schedule
 
 
@@ -90,6 +101,23 @@ def resume(log_path: str, state: dict) -> tuple[int, dict]:
     state["step"] = int(saved["step"])
     print(f"Reloading from {ckpt_lib.ckpt_path(log_path, step)}")
     return step, state
+
+
+def summary_module(name: str, module: torch.nn.Module) -> int:
+    """Print the total parameter count (ref: pi_GAN/utils.py:14-20)."""
+    n = sum(p.numel() for p in module.parameters())
+    print(f"{name}: {n:,} total parameters.")
+    return n
+
+
+def clock(device: torch.device):
+    """A point in time: an event recorded on the current CUDA stream, or the
+    host's clock on the CPU."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
 
 
 def parse_cli(argv, defaults: dict) -> Config:

@@ -25,7 +25,6 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -171,16 +170,6 @@ def load_dataset(config):
     return images, poses, width, height, focal, train_idx
 
 
-def _clock(device):
-    """A point in time: an event on the current CUDA stream, or the host's
-    clock on the CPU."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
 def train(config, device=None, timed_steps=0, window=None) -> dict:
     """Train from a resolved config; runs on CUDA unless ``device='cpu'``.
 
@@ -251,7 +240,7 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
                     torch.cuda.synchronize(device)
                 if window is not None:
                     stack.enter_context(window)
-                opened = _clock(device)
+                opened = common.clock(device)
             # Epoch boundary: a real reshuffle.
             if (global_step >= config["start_up_itrs"]
                     and (batch_idx + 1) * batch_size > n_rays):
@@ -271,7 +260,7 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
             m = step_fn(batch, generator=dev_gen)
             logger.append(loss=m["loss"], psnr=m["psnr"])
             if opened is not None and global_step == iterations:
-                closed = _clock(device)
+                closed = common.clock(device)
                 stack.close()
 
             if global_step % config["i_print"] == 0:

@@ -1,10 +1,13 @@
-"""Weight bridge: the JAX package's NeRF param tree -> the port's
-``state_dict``.
+"""Weight bridge between the JAX package's param trees and the port's
+``state_dict``s, in both directions.
 
-The JAX tree is nested dicts/tuples of numpy arrays
-(``{"layers_pos": ({"w", "b"}, ...), "layers_dir": (...), "sigma": {...},
-"rgb": {...}}``) with weights stored ``[in, out]``; ``nn.Linear`` stores
-``[out, in]``, so each weight is transposed.
+A JAX tree is nested dicts/tuples of arrays whose layers are ``{"w", "b"}``
+dicts; the port's module names join the same keys and tuple indices with
+dots, ``w`` becoming ``weight`` and ``b`` ``bias`` (the NeRF's
+``layers_pos.3.weight``, pi-GAN's ``mapping.heads.8.bias``,
+``trunk.hidden.0.weight``, ``blocks.2.conv1.weight``).  Linear weights are
+``[in, out]`` in JAX and ``[out, in]`` in ``nn.Linear``, so they are
+transposed; convolution weights are OIHW in both and are not.
 """
 
 from __future__ import annotations
@@ -12,36 +15,53 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _linear(prefix: str, p: dict, out: dict) -> None:
-    out[f"{prefix}.weight"] = torch.from_numpy(
-        np.array(p["w"], np.float32).T.copy())
-    out[f"{prefix}.bias"] = torch.from_numpy(
-        np.array(p["b"], np.float32))
+_LEAF = {"w": "weight", "b": "bias"}
+_KEY = {v: k for k, v in _LEAF.items()}
 
 
-def nerf_state_dict(params) -> dict:
-    """JAX NeRF params (numpy leaves) -> ``NeRFModel`` state_dict."""
+def _to_port(name: str, a) -> torch.Tensor:
+    a = np.array(a, np.float32)
+    if name == "weight" and a.ndim == 2:
+        a = a.T
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def state_dict_from_params(params) -> dict:
+    """JAX param tree (numpy or jax leaves) -> the port's ``state_dict``."""
     out: dict = {}
-    for group in ("layers_pos", "layers_dir"):
-        for i, p in enumerate(params[group]):
-            _linear(f"{group}.{i}", p, out)
-    _linear("sigma", params["sigma"], out)
-    _linear("rgb", params["rgb"], out)
+
+    def walk(prefix, node):
+        items = (node.items() if isinstance(node, dict)
+                 else enumerate(node))
+        for k, v in items:
+            if isinstance(v, (dict, tuple, list)):
+                walk(f"{prefix}{k}.", v)
+            else:
+                out[f"{prefix}{_LEAF[k]}"] = _to_port(_LEAF[k], v)
+
+    walk("", params)
     return out
 
 
-def nerf_params_from_state_dict(state: dict) -> dict:
-    """The inverse: ``NeRFModel`` state_dict -> JAX-layout numpy tree."""
-    def lin(prefix):
-        return {"w": state[f"{prefix}.weight"].detach().cpu().numpy().T.copy(),
-                "b": state[f"{prefix}.bias"].detach().cpu().numpy().copy()}
+def params_from_state_dict(state: dict) -> dict:
+    """The inverse: a ``state_dict`` -> the JAX-layout numpy tree (numbered
+    children become tuples)."""
+    root: dict = {}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        a = t.detach().cpu().numpy().copy()
+        node[_KEY[leaf]] = a.T.copy() if leaf == "weight" and a.ndim == 2 \
+            else a
 
-    def group(name):
-        n = 1 + max(int(k.split(".")[1]) for k in state
-                    if k.startswith(name + "."))
-        return tuple(lin(f"{name}.{i}") for i in range(n))
+    def freeze(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return tuple(freeze(node[str(i)]) for i in range(len(node)))
+        return {k: freeze(v) for k, v in node.items()}
 
-    return {"layers_pos": group("layers_pos"),
-            "layers_dir": group("layers_dir"),
-            "sigma": lin("sigma"), "rgb": lin("rgb")}
+    return freeze(root)
+

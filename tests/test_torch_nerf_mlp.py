@@ -21,7 +21,7 @@ from msra_practice_project_tpu_torch.core import nn as tnn
 from msra_practice_project_tpu_torch.models.nerf import nerf_model
 from msra_practice_project_tpu_torch.ops.kernels import nerf_mlp as K
 from msra_practice_project_tpu_torch.weights import (
-    nerf_params_from_state_dict, nerf_state_dict)
+    params_from_state_dict, state_dict_from_params)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,7 +49,7 @@ def shared():
         lambda a: (jnp.asarray(rng.uniform(-0.1, 0.1, a.shape), jnp.float32)
                    if a.ndim == 1 else a), p)
     m = nerf_model()
-    m.load_state_dict(nerf_state_dict(_np_tree(p)))
+    m.load_state_dict(state_dict_from_params(_np_tree(p)))
     return p, m
 
 
@@ -91,7 +91,7 @@ def test_nerf_model_matches_jax(shared):
 
 def test_weights_roundtrip_and_siren_not_ported(shared):
     p, m = shared
-    back = nerf_params_from_state_dict(m.state_dict())
+    back = params_from_state_dict(m.state_dict())
     for a, b in zip(jax.tree_util.tree_leaves(_np_tree(p)),
                     jax.tree_util.tree_leaves(back)):
         np.testing.assert_array_equal(a, b)
@@ -141,7 +141,7 @@ def _port_grads(m, x, dy, bf16):
     out = K.fused_nerf_apply(m, torch.from_numpy(x), bf16)
     (out * torch.from_numpy(dy)).sum().backward()
     g = {k: t.grad.clone() for k, t in m.named_parameters()}
-    return out.detach().numpy(), nerf_params_from_state_dict(
+    return out.detach().numpy(), params_from_state_dict(
         {k: v for k, v in g.items()})
 
 

@@ -26,7 +26,7 @@ from msra_practice_project_tpu_torch.core.config import (
 from msra_practice_project_tpu_torch.models.nerf import nerf_model
 from msra_practice_project_tpu_torch.train import common, train_nerf
 from msra_practice_project_tpu_torch.weights import (
-    nerf_params_from_state_dict, nerf_state_dict)
+    params_from_state_dict, state_dict_from_params)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,13 +54,13 @@ def _port_models(params):
         if p is not None:
             models[name] = nerf_model()
             models[name].load_state_dict(
-                nerf_state_dict(jax.tree_util.tree_map(np.asarray, p)))
+                state_dict_from_params(jax.tree_util.tree_map(np.asarray, p)))
     return models
 
 
 def _leaves(model):
     return jax.tree_util.tree_leaves(
-        nerf_params_from_state_dict(model.state_dict()))
+        params_from_state_dict(model.state_dict()))
 
 
 @pytest.mark.parametrize("use_fine,use_alpha",
@@ -103,7 +103,7 @@ def test_one_step_matches_jax_step(use_fine, use_alpha):
         np.testing.assert_allclose(float(m_t[k]), float(m_j[k]), rtol=1e-5,
                                    err_msg=k)
     for name, model in models.items():
-        g_t = jax.tree_util.tree_leaves(nerf_params_from_state_dict(
+        g_t = jax.tree_util.tree_leaves(params_from_state_dict(
             {k: p.grad for k, p in model.named_parameters()}))
         for a, b in zip(jax.tree_util.tree_leaves(grads_j[name]), g_t):
             rel = np.linalg.norm(b - a) / max(np.linalg.norm(a), 1e-30)
