@@ -20,20 +20,35 @@ NeRF (K1, K2):
      (the profiler's own host cost shows as the gap to phase 3's ms/step);
   5. K1 and K2 per launch at both shapes beside the plain version and the
      least time the card could take;
+The rest of the fused NeRF MLP (K3, K6, K5, K4):
+  6. hold K3 and K6 against their plain version at both shapes and at the
+     roofline path's 262,144 points, fp32 and bf16, with K1's output gates;
+     K3 must be bitwise equal to K1's output and K6 to K3;
+  7. hold K5 (dW/db) and K4 (dx) against their plain versions at the same
+     three shapes, fp32 and bf16, with need_dx False and True, on the same
+     activations and deltas and end to end; K5's dW/db must be bitwise
+     equal to K1 -> K2's, dx from K5 + K4 to dx from K2 + K4, two K5
+     launches to each other and need_dx=False to need_dx=True;
+  8. their path, tools/torch_roofline_nerf.py at batch 1024 in both modes
+     (run in this process): the step's breakdown by stage, fused_nerf_apply
+     at its defaults (forward K3 1, forward + backward K3 1, K5 1, K4 1 per
+     call) and fwdwall (K6 launched);
+  9. K3, K6, K5 and K4 per launch at both shapes beside the plain version
+     and the least time the card could take;
 pi-GAN (K7, K8):
-  6. hold K8 and K7 against their plain versions at the G step's two trunk
+  10. hold K8 and K7 against their plain versions at the G step's two trunk
      shapes (64 images of 8,192 and of 24,576 points), in fp32 and bf16, K7
      with and without dx, and check that K7 is bitwise reproducible;
-  7. the pi-GAN path: `train_pigan.train` on configs/pi_gan/test.json in
+  11. the pi-GAN path: `train_pigan.train` on configs/pi_gan/test.json in
      the default trunk mode 1 (plain forward, K7 backward) through both
      stages (iterations [20, 30], fade-in [0, 5]); K7 must be launched once
      per iteration and K8 never.  Iterations 11-20 (stage 0) are one timed
      window: ms per iteration (a D step and a G step) and images/s;
-  8. the same recipe in mode 2 (K8 forward, K7 backward), 8 iterations of
+  12. the same recipe in mode 2 (K8 forward, K7 backward), 8 iterations of
      stage 0, the last 4 timed; K8 4 launches and K7 1 per iteration;
-  9. both modes again for 6 iterations with torch.profiler on for the last
+  13. both modes again for 6 iterations with torch.profiler on for the last
      3: busy, idle share and the time by kernel;
- 10. K8 and K7 per launch at both shapes beside the plain version and the
+  14. K8 and K7 per launch at both shapes beside the plain version and the
      least time the card could take.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -43,6 +58,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -55,6 +71,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 COARSE_N, FINE_N = 1024 * 64, 1024 * 192
+ROOFLINE_BATCH = 1024   # rays; the roofline tool's MLP points: 262,144
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def nvidia_smi_line() -> str:
@@ -135,31 +153,16 @@ def check_kernels(torch, K, n):
         if not ok:
             raise SystemExit("K1 disagrees with its plain version")
         # K2 from the same saved activations
-        g_k = K.nerf_mlp_bwd_saved(wk, dy, acts_k, bf16)
-        g_k2 = K.nerf_mlp_bwd_saved(wk, dy, acts_k, bf16)
-        g_p = K.nerf_mlp_bwd_saved_plain(wk, dy, acts_k, bf16)
+        g_k = K.nerf_mlp_bwd_saved(wk, dy, acts_k, bf16)[0]
+        g_k2 = K.nerf_mlp_bwd_saved(wk, dy, acts_k, bf16)[0]
+        g_p = K.nerf_mlp_bwd_saved_plain(wk, dy, acts_k, bf16)[0]
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
-        worst, max_abs = 0.0, 0.0
-        for key, a, b in zip(K.PACK_KEYS, g_k, g_p):
-            err = float((a - b).abs().max())
-            max_abs = max(max_abs, err)
-            if bf16:
-                r = rel_frob(a, b) if float(b.norm()) > 0 else err
-                worst = max(worst, r)
-                bad = r > 5e-2
-            else:
-                scale = float(b.abs().max())
-                worst = max(worst, err / max(scale, 1e-30))
-                bad = err > 1e-4 * scale
-            if bad:
-                print(f"  K2 bf16={bf16}: {key} max|err| {err:.3e} "
-                      f"rel {rel_frob(a, b):.3e} max|ref| "
-                      f"{float(b.abs().max()):.3e}", flush=True)
+        worst, key, max_abs = grad_worst(K, g_k, g_p, bf16)
         ok = same and worst <= (5e-2 if bf16 else 1e-4)
         print(f"  K2 bf16={bf16}: worst {'rel frob' if bf16 else 'err/max'} "
-              f"{worst:.3e}, max|err| {max_abs:.3e}, bitwise repeat {same} -> "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"{worst:.3e} at {key}, max|err| {max_abs:.3e}, bitwise repeat "
+              f"{same} -> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit("K2 disagrees with its plain version or is not "
                              "reproducible")
@@ -167,6 +170,131 @@ def check_kernels(torch, K, n):
             report = {"nerf_mlp_fwd_save": out_err,
                       "nerf_mlp_bwd_saved": max_abs}
         del acts_k, acts_p, g_k, g_k2, g_p
+        torch.cuda.synchronize()
+    return report
+
+
+def check_fwd(torch, K, n):
+    """K3 and K6 against their plain version on the card, same inputs, with
+    K1's output gates; K3 must be bitwise equal to K1's output and K6 to K3.
+    Returns the bf16 mode's max |kernel - plain| per kernel."""
+    x, w, _ = seeded_inputs(torch, K, n)
+    x = x.cuda()
+    report = {}
+    for bf16 in (False, True):
+        wk = [t.cuda() for t in K.kernel_weights(w, bf16)]
+        k1 = K.nerf_mlp_fwd_save(x, wk, bf16)[0]
+        k3 = K.nerf_mlp_fwd(x, wk, bf16)
+        k6 = K.nerf_mlp_fwd_pipelined(x, wk, bf16)
+        ref = K.nerf_mlp_fwd_plain(x, wk, bf16)
+        torch.cuda.synchronize()
+        k3_k1, k6_k3 = torch.equal(k3, k1), torch.equal(k6, k3)
+        ok, errs, line = k3_k1 and k6_k3, {}, []
+        for name, out in (("nerf_mlp_fwd", k3),
+                          ("nerf_mlp_fwd_pipelined", k6)):
+            err = float((out - ref).abs().max())
+            errs[name] = err
+            if bf16:
+                ok = ok and rel_frob(out, ref) <= 1e-3 and err <= 5e-2
+            else:
+                ok = ok and err <= 1e-4 * float(ref.abs().max())
+            line.append(f"{'K3' if name == 'nerf_mlp_fwd' else 'K6'} max|err| "
+                        f"{err:.3e} rel {rel_frob(out, ref):.3e}")
+        print(f"  K3/K6 bf16={bf16}: {', '.join(line)} (max|ref| "
+              f"{float(ref.abs().max()):.3e}); K3 == K1 out {k3_k1}, "
+              f"K6 == K3 {k6_k3} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit("K3/K6 disagree with their plain version, with "
+                             "K1 or with each other")
+        if bf16:
+            report = errs
+        del k1, k3, k6, ref
+    return report
+
+
+def grad_worst(K, got, ref, bf16):
+    """(worst per-tensor error: relative Frobenius in bf16, max|err| / max|ref|
+    in fp32; the tensor; max |err|) over the packed gradients."""
+    worst, key, max_abs = -1.0, None, 0.0
+    for k, a, b in zip(K.PACK_KEYS, got, ref):
+        err = float((a - b).abs().max())
+        max_abs = max(max_abs, err)
+        if bf16:
+            r = rel_frob(a, b) if float(b.norm()) > 0 else err
+        else:
+            r = err / max(float(b.abs().max()), 1e-30)
+        if r > worst:
+            worst, key = r, k
+    return worst, key, max_abs
+
+
+def check_bwd(torch, K, n):
+    """K5 and K4 against their plain versions on the card, in fp32 and bf16.
+
+    On the same inputs: K5's dW/db against the plain delta chain on the
+    activations K5 recomputes (K1's, bitwise: checked below) with K2's gates
+    (fp32 1e-4 of max|ref|, bf16 5e-2 relative Frobenius per tensor), and K4
+    against its plain version on K5's deltas with K7's dx gates (fp32 1e-3
+    of max|ref|, bf16 5e-2 relative Frobenius).  End to end, against the
+    plain K5 (its own recompute) and plain K4: relative Frobenius per
+    tensor, 5e-3 in fp32 (a relu mask that flips between two fp32 forwards
+    moves one point's deltas; bf16 arithmetic reads ~1e-2) and 5e-2 in
+    bf16.  Bitwise: K5's dW/db = K1 -> K2's,
+    dx from K5 + K4 = dx from K2 + K4, two K5 launches, need_dx=False's
+    dW/db = need_dx=True's.  Returns the bf16 mode's max |kernel - plain|
+    per kernel (on the same inputs)."""
+    x, w, dy = seeded_inputs(torch, K, n)
+    x, dy = x.cuda(), dy.cuda()
+    report = {}
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    for bf16 in (False, True):
+        wk = [t.cuda() for t in K.kernel_weights(w, bf16)]
+        _, acts = K.nerf_mlp_fwd_save(x, wk, bf16)
+        g2, dh2 = K.nerf_mlp_bwd_saved(wk, dy, acts, bf16)
+        dx2 = K.nerf_mlp_dx(x, wk, dh2, bf16)
+        g_chain = K.nerf_mlp_bwd_saved_plain(wk, dy, acts, bf16)[0]
+        del acts
+        g5, dh5 = K.nerf_mlp_bwd(x, wk, dy, bf16, True)
+        g5b, dh5b = K.nerf_mlp_bwd(x, wk, dy, bf16, True)
+        g5n, dh5n = K.nerf_mlp_bwd(x, wk, dy, bf16, False)
+        dx5 = K.nerf_mlp_dx(x, wk, dh5, bf16)
+        g_p, dh_p = K.nerf_mlp_bwd_plain(x, wk, dy, bf16, True)
+        dx_k4 = K.nerf_mlp_dx_plain(x, wk, dh5, bf16)
+        dx_p = K.nerf_mlp_dx_plain(x, wk, dh_p, bf16)
+        torch.cuda.synchronize()
+        bits = {"K5 == K1->K2": same(g5, g2),
+                "dx K5+K4 == K2+K4": torch.equal(dx5, dx2),
+                "K5 repeat": same(g5, g5b) and same(dh5, dh5b),
+                "need_dx=False == True": dh5n is None and same(g5n, g5)}
+        worst, key, max_abs = grad_worst(K, g5, g_chain, bf16)
+        e2e, e2e_key, _ = grad_worst(K, g5, g_p, True)
+        k4_err = float((dx5 - dx_k4).abs().max())
+        k4 = (rel_frob(dx5, dx_k4) if bf16
+              else k4_err / max(float(dx_k4.abs().max()), 1e-30))
+        dx_e2e = rel_frob(dx5, dx_p)
+        e2e_gate = 5e-2 if bf16 else 5e-3
+        ok = (all(bits.values()) and worst <= (5e-2 if bf16 else 1e-4)
+              and k4 <= (5e-2 if bf16 else 1e-3) and e2e <= e2e_gate
+              and dx_e2e <= e2e_gate)
+        print(f"  K5/K4 bf16={bf16}: K5 vs plain chain on its activations "
+              f"{'rel frob' if bf16 else 'err/max'} {worst:.3e} at {key} "
+              f"(max|err| {max_abs:.3e}); K4 vs plain on its deltas "
+              f"{'rel frob' if bf16 else 'err/max'} {k4:.3e} (max|err| "
+              f"{k4_err:.3e}); end to end vs plain K5 + K4: dW/db rel frob "
+              f"{e2e:.3e} at {e2e_key}, dx rel frob {dx_e2e:.3e} (max|err| "
+              f"{float((dx5 - dx_p).abs().max()):.3e}, max|ref| "
+              f"{float(dx_p.abs().max()):.3e}); {bits} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit("K5/K4 disagree with their plain versions or "
+                             "break a bitwise equality")
+        if bf16:
+            report = {"nerf_mlp_bwd": max_abs, "nerf_mlp_dx": k4_err}
+        del g2, dh2, dx2, g_chain, g5, dh5, g5b, dh5b, g5n, dx5, g_p, dh_p
+        del dx_k4, dx_p
         torch.cuda.synchronize()
     return report
 
@@ -303,55 +431,64 @@ def time_ms(torch, fn, reps):
     return statistics.median(ts)
 
 
-def mlp_macs():
-    """Multiply-adds per point of the NeRF MLP's layers (unpadded)."""
-    layers = [(60, 256)] + [(256, 256)] * 4 + [(316, 256)] + [(256, 256)] * 2 \
-        + [(256, 1), (256, 256), (280, 128), (128, 3)]
-    fwd = sum(i * o for i, o in layers)
-    # backward without dx: dW for every layer, plus delta @ W^T for every
-    # layer whose input is an activation (not the PEs) and the two heads
-    # rebuilt from h7/h9
-    chain = (4 * 256 * 256 + 256 * 256 + 2 * 256 * 256 + 256 * 1
-             + 256 * 256 + 256 * 128 + 128 * 3)
-    return fwd, fwd + chain + 256 + 128 * 3
-
-
 def bounds(K, n, w):
-    """(K1 ms, K2 ms, K1 bound_by, K2 bound_by): least time for the work."""
-    wbytes = sum(t.numel() * (2 if k.startswith("W") else 4)
-                 for k, t in zip(K.PACK_KEYS, w))
-    fwd_macs, bwd_macs = mlp_macs()
-    act_bytes = K.ACT_PAD * 2
-    k1_bytes = n * (K.IN_PAD * 4 + K.OUT_PAD * 4 + act_bytes) + wbytes
-    k2_bytes = n * (K.OUT_PAD * 4 + act_bytes) + wbytes + K.GRAD_TOTAL * 4
-    out = []
-    for b, macs in ((k1_bytes, fwd_macs), (k2_bytes, bwd_macs)):
+    """{kernel: {bound_ms, bound_by}}: the least time for one launch's work
+    on n points, the larger of its bytes (each input read once, each output
+    written once) over HBM's rate and its MACs over the bf16 tensor-core
+    rate."""
+    wbytes = sum(t.numel() * t.element_size() for t in w)
+    pe_wbytes = sum(t.numel() * t.element_size() for k, t in zip(K.PACK_KEYS, w)
+                    if k in ("W0", "W5a", "W9b"))
+    macs = K.macs_per_point()
+    row, act = K.IN_PAD * 4, K.ACT_PAD * 2    # x, out, dy, dx: 32 B a row
+    dh = K.PE_DELTA_W * 2
+    grads = K.GRAD_TOTAL * 4
+    work = {
+        "nerf_mlp_fwd_save": (n * (2 * row + act) + wbytes, macs["fwd"]),
+        "nerf_mlp_bwd_saved": (n * (row + act) + wbytes + grads,
+                               macs["bwd_saved"]),
+        "nerf_mlp_fwd": (n * 2 * row + wbytes, macs["fwd"]),
+        "nerf_mlp_fwd_pipelined": (n * 2 * row + wbytes, macs["fwd"]),
+        "nerf_mlp_bwd": (n * (2 * row + dh) + wbytes + grads, macs["bwd"]),
+        "nerf_mlp_dx": (n * (2 * row + dh) + pe_wbytes, macs["dx"]),
+    }
+    out = {}
+    for name, (b, m) in work.items():
         t_b = b / HBM_BYTES_PER_S * 1e3
-        t_o = 2 * macs * n / BF16_FLOP_PER_S * 1e3
-        out.append((max(t_b, t_o), "bytes" if t_b >= t_o else "operations"))
+        t_o = 2 * m * n / BF16_FLOP_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
     return out
 
 
-def time_kernels(torch, K, n, reps):
+def time_kernels(torch, K, names, n, reps):
+    """{kernel: {ms, plain_ms, bound_ms, bound_by}} for the NeRF kernels in
+    `names` (bf16, the path's flags) at n points."""
     x, w, dy = seeded_inputs(torch, K, n, seed=1)
     x, dy = x.cuda(), dy.cuda()
     wk = [t.cuda() for t in K.kernel_weights(w, True)]
     _, acts = K.nerf_mlp_fwd_save(x, wk, True)
-    res = {
-        "fwd_ms": time_ms(torch, lambda: K.nerf_mlp_fwd_save(x, wk, True),
-                          reps),
-        "fwd_plain_ms": time_ms(
-            torch, lambda: K.nerf_mlp_fwd_save_plain(x, wk, True), 5),
-        "bwd_ms": time_ms(
-            torch, lambda: K.nerf_mlp_bwd_saved(wk, dy, acts, True), reps),
-        "bwd_plain_ms": time_ms(
-            torch, lambda: K.nerf_mlp_bwd_saved_plain(wk, dy, acts, True),
-            5),
+    _, dh = K.nerf_mlp_bwd(x, wk, dy, True, True)
+    runs = {
+        "nerf_mlp_fwd_save": (lambda: K.nerf_mlp_fwd_save(x, wk, True),
+                              lambda: K.nerf_mlp_fwd_save_plain(x, wk, True)),
+        "nerf_mlp_bwd_saved": (
+            lambda: K.nerf_mlp_bwd_saved(wk, dy, acts, True),
+            lambda: K.nerf_mlp_bwd_saved_plain(wk, dy, acts, True)),
+        "nerf_mlp_fwd": (lambda: K.nerf_mlp_fwd(x, wk, True),
+                         lambda: K.nerf_mlp_fwd_plain(x, wk, True)),
+        "nerf_mlp_fwd_pipelined": (
+            lambda: K.nerf_mlp_fwd_pipelined(x, wk, True),
+            lambda: K.nerf_mlp_fwd_plain(x, wk, True)),
+        "nerf_mlp_bwd": (lambda: K.nerf_mlp_bwd(x, wk, dy, True, True),
+                         lambda: K.nerf_mlp_bwd_plain(x, wk, dy, True, True)),
+        "nerf_mlp_dx": (lambda: K.nerf_mlp_dx(x, wk, dh, True),
+                        lambda: K.nerf_mlp_dx_plain(x, wk, dh, True)),
     }
-    (b1, by1), (b2, by2) = bounds(K, n, wk)
-    res.update(fwd_bound_ms=b1, fwd_bound_by=by1, bwd_bound_ms=b2,
-               bwd_bound_by=by2)
-    return res
+    b = bounds(K, n, wk)
+    return {name: {"ms": time_ms(torch, runs[name][0], reps),
+                   "plain_ms": time_ms(torch, runs[name][1], 5), **b[name]}
+            for name in names}
 
 
 def device_kernels(prof):
@@ -400,7 +537,7 @@ def reset_counts():
 
 def main_path(torch, K, iterations, startup, timed):
     """The main path with every launch counter set to 0 just before it and
-    read just after; both kernels must run twice per step."""
+    read just after; K1 and K2 must run twice per step, K3-K6 never."""
     reset_counts()
     ms, batch, log, ckpt, png = run_train(torch, iterations, startup, timed)
     launches = {k.__name__: k.launches for k in K.KERNELS}
@@ -412,10 +549,53 @@ def main_path(torch, K, iterations, startup, timed):
           f"ms/step, {rays:,.0f} rays/s", flush=True)
     if not (len(losses) == iterations
             and all(v == v and abs(v) != float("inf") for v in losses)
-            and all(n == 2 * iterations for n in launches.values())
+            and launches == {k.__name__: 2 * iterations if k in (
+                K.nerf_mlp_fwd_save, K.nerf_mlp_bwd_saved) else 0
+                for k in K.KERNELS}
             and ckpt and png):
         raise SystemExit("main path check failed")
     return launches, ms, rays
+
+
+def load_roofline_tool():
+    """tools/torch_roofline_nerf.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_roofline_nerf", os.path.join(ROOT, "tools",
+                                            "torch_roofline_nerf.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def roofline_path(torch, K, tool):
+    """The path of K3-K6: the roofline tool at ROOFLINE_BATCH, both modes,
+    in this process, with every launch counter set to 0 just before it and
+    read just after.  Fails unless fused_nerf_apply at its defaults
+    launched K3 1 time per forward and K3, K5, K4 1 time each per forward +
+    backward (K5 and K4 per backward alone), the train step K1 and K2 twice,
+    fwdwall K6, and every time is a positive finite number."""
+    reset_counts()
+    main = tool.run(ROOFLINE_BATCH, "main")
+    wall = tool.run(ROOFLINE_BATCH, "fwdwall")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    per_call = {**main["launches"],
+                **{f"fwdwall_{k}": v for k, v in wall["launches"].items()}}
+    want = {"step": {"nerf_mlp_fwd_save": 2, "nerf_mlp_bwd_saved": 2},
+            "mlp_fwd": {"nerf_mlp_fwd": 1},
+            "mlp_bwd": {"nerf_mlp_bwd": 1, "nerf_mlp_dx": 1},
+            "mlp_fwd_bwd": {"nerf_mlp_fwd": 1, "nerf_mlp_bwd": 1,
+                            "nerf_mlp_dx": 1},
+            "fwdwall_k3": {"nerf_mlp_fwd": 1},
+            "fwdwall_k6": {"nerf_mlp_fwd_pipelined": 1}}
+    times = [v for r in (main, wall) for k, v in r.items()
+             if k.endswith("_ms")]
+    print(f"  launches per call {per_call}; over the path {launches}",
+          flush=True)
+    if not (all(per_call[k] == v for k, v in want.items())
+            and all(0 < t < float("inf") for t in times)):
+        raise SystemExit("roofline path check failed")
+    return launches, main, wall
 
 
 def is_port_kernel(name: str) -> bool:
@@ -637,29 +817,67 @@ def main() -> int:
     torch.cuda.synchronize()
 
     phase("K1/K2 timings (bf16, CUDA events, median)")
+    k12 = ("nerf_mlp_fwd_save", "nerf_mlp_bwd_saved")
     times = {}
     for label, n in (("coarse", COARSE_N), ("fine", FINE_N)):
-        times[label] = time_kernels(torch, K, n, 25)
-        t = times[label]
-        print(f"  {label} N={n}: K1 {t['fwd_ms']:.4f} ms (plain "
-              f"{t['fwd_plain_ms']:.4f}, bound {t['fwd_bound_ms']:.4f} "
-              f"{t['fwd_bound_by']}); K2 {t['bwd_ms']:.4f} ms (plain "
-              f"{t['bwd_plain_ms']:.4f}, bound {t['bwd_bound_ms']:.4f} "
-              f"{t['bwd_bound_by']})", flush=True)
+        times[label] = t = time_kernels(torch, K, k12, n, 25)
+        print(f"  {label} N={n}: " + "; ".join(
+            f"{name} {t[name]['ms']:.4f} ms (plain {t[name]['plain_ms']:.4f},"
+            f" bound {t[name]['bound_ms']:.4f} {t[name]['bound_by']})"
+            for name in k12), flush=True)
         torch.cuda.synchronize()
     src = "msra_practice_project_tpu_torch/ops/kernels/csrc/nerf_mlp.cu"
-    for name, pre, replaces in (
-            ("nerf_mlp_fwd_save", "fwd",
-             "msra_practice_project_tpu/ops/pallas/nerf_mlp.py:336"),
-            ("nerf_mlp_bwd_saved", "bwd",
-             "msra_practice_project_tpu/ops/pallas/nerf_mlp.py:353")):
+    pallas = "msra_practice_project_tpu/ops/pallas/nerf_mlp.py"
+    for name, line in (("nerf_mlp_fwd_save", 336), ("nerf_mlp_bwd_saved", 353)):
         kernels.append(kernel_entry(
-            name, src, replaces, launches[name], errs[name], times, pre,
+            name, src, f"{pallas}:{line}", launches[name], errs[name],
+            times["coarse"][name], times["fine"][name],
             f"N={COARSE_N} (coarse pass)", f"N={FINE_N}",
             "train_nerf, lego recipe"))
     summary.update(nerf_step_ms=step_ms, nerf_rays_per_s=rays,
                    nerf_profiled_step_ms=prof_ms, nerf_device_busy_ms=busy,
                    nerf_profiled_idle_share=idle)
+
+    # the two passes' shapes and the roofline path's own (in bf16 K5 runs
+    # that one in two chunks)
+    tool = load_roofline_tool()
+    for n in (COARSE_N, FINE_N, ROOFLINE_BATCH * tool.PTS_PER_RAY):
+        phase(f"K3/K6 vs plain version at N={n}")
+        for name, err in check_fwd(torch, K, n).items():
+            errs[name] = max(err, errs.get(name, 0.0))
+        phase(f"K5/K4 vs plain versions at N={n} (K5 in "
+              f"{-(-n // K.chunk_rows(n, True))} chunk(s) in bf16, "
+              f"{-(-n // K.chunk_rows(n, False))} in fp32)")
+        for name, err in check_bwd(torch, K, n).items():
+            errs[name] = max(err, errs.get(name, 0.0))
+        torch.cuda.synchronize()
+
+    phase(f"K3-K6 path: tools/torch_roofline_nerf.py, batch {ROOFLINE_BATCH},"
+          " main and fwdwall modes")
+    rl_launches, rl_main, rl_wall = roofline_path(torch, K, tool)
+    summary.update({f"roofline_{k}": v for k, v in rl_main.items()
+                    if k.endswith(("_ms", "_per_s", "_tflops",
+                                   "_ms_per_step"))})
+    summary.update({f"fwdwall_{k}": v for k, v in rl_wall.items()
+                    if k.endswith(("_ms", "_tflops"))})
+
+    phase("K3/K6/K5/K4 timings (bf16, CUDA events, median)")
+    k3456 = ("nerf_mlp_fwd", "nerf_mlp_fwd_pipelined", "nerf_mlp_bwd",
+             "nerf_mlp_dx")
+    for label, n in (("coarse", COARSE_N), ("fine", FINE_N)):
+        times[label] = t = time_kernels(torch, K, k3456, n, 25)
+        print(f"  {label} N={n}: " + "; ".join(
+            f"{name} {t[name]['ms']:.4f} ms (plain {t[name]['plain_ms']:.4f},"
+            f" bound {t[name]['bound_ms']:.4f} {t[name]['bound_by']})"
+            for name in k3456), flush=True)
+        torch.cuda.synchronize()
+    for name, line in (("nerf_mlp_fwd", 279), ("nerf_mlp_fwd_pipelined", 294),
+                       ("nerf_mlp_bwd", 500), ("nerf_mlp_dx", 605)):
+        kernels.append(kernel_entry(
+            name, src, f"{pallas}:{line}", rl_launches[name], errs[name],
+            times["coarse"][name], times["fine"][name], f"N={COARSE_N}",
+            f"N={FINE_N}", "tools/torch_roofline_nerf.py, batch 1024, "
+            "main + fwdwall"))
 
     film_errs = {}
     for n_pts in (FILM_COARSE_P, FILM_FINE_P):
@@ -725,7 +943,8 @@ def main() -> int:
              "msra_practice_project_tpu/ops/pallas/film_mlp.py:160",
              launches2["film_mlp_fwd"], "train_pigan, test.json, mode 2")):
         kernels.append(kernel_entry(
-            name, src, replaces, launches, film_errs[name], ftimes, pre,
+            name, src, replaces, launches, film_errs[name],
+            by_kernel(ftimes["coarse"], pre), by_kernel(ftimes["fine"], pre),
             f"B={FILM_B} P={FILM_COARSE_P} (coarse pass)",
             f"B={FILM_B} P={FILM_FINE_P}", path))
 
@@ -738,21 +957,22 @@ def main() -> int:
     return 0
 
 
-def kernel_entry(name, src, replaces, launches, err, times, pre, shape,
+def by_kernel(t, pre):
+    """One kernel's {ms, plain_ms, bound_ms, bound_by} from a timing dict
+    keyed "<pre>_ms", "<pre>_plain_ms", ..."""
+    return {k: t[f"{pre}_{k}"] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")}
+
+
+def kernel_entry(name, src, replaces, launches, err, coarse, fine, shape,
                  fine_shape, path):
     """One kernel's entry of the `kernels` line: the coarse-pass shape's
     numbers at the top level, the fine pass's under "fine"."""
-    c, f = times["coarse"], times["fine"]
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, "ms": c[f"{pre}_ms"],
-        "plain_ms": c[f"{pre}_plain_ms"], "bound_ms": c[f"{pre}_bound_ms"],
-        "bound_by": c[f"{pre}_bound_by"], "library_ms": None, "shape": shape,
-        "launched_by": path,
-        "fine": {"shape": fine_shape, "ms": f[f"{pre}_ms"],
-                 "plain_ms": f[f"{pre}_plain_ms"],
-                 "bound_ms": f[f"{pre}_bound_ms"],
-                 "bound_by": f[f"{pre}_bound_by"]},
+        "launches": launches, "max_abs_err": err, **coarse,
+        "library_ms": None, "shape": shape, "launched_by": path,
+        "fine": {"shape": fine_shape, **fine},
     }
 
 

@@ -1,11 +1,12 @@
-// Fused NeRF MLP kernels for Hopper (sm_90a): the NeRF train step's forward
-// with saved activations (K1) and its backward from them (K2, no input grad).
+// Fused NeRF MLP kernels for Hopper (sm_90a): every Pallas kernel of
+// msra_practice_project_tpu/ops/pallas/nerf_mlp.py.  Per point (unpadded
+// layers; ops/kernels/nerf_mlp.py::macs_per_point counts them) the forward
+// does 591,488
+// MACs, K2's delta chain and dW 1,149,824, the input gradient 33,792.
 //
-// K1 `nerf_mlp_fwd_save` replaces msra_practice_project_tpu/ops/pallas/
-//    nerf_mlp.py::_fwd_save_kernel (launched by _fused_forward_save).
-//    Bound on an H100: per point it reads 32 B of input and writes 5,120 B of
-//    bf16 activations + 32 B of output, and does 591,488 MACs (unpadded
-//    layers; chip_smoke.py's mlp_macs counts them).  At the
+// K1 `nerf_mlp_fwd_save` replaces _fwd_save_kernel (launched by
+//    _fused_forward_save).  Bound on an H100: per point it reads 32 B of
+//    input and writes 5,120 B of bf16 activations + 32 B of output: at the
 //    train step's 65,536 / 196,608 points that is ~0.10 / ~0.30 ms of HBM
 //    traffic at 3.35 TB/s against ~0.08 / ~0.24 ms of bf16 tensor-core work
 //    at 989 TFLOP/s: memory-bound.  Design: one CTA per tile of 64 points
@@ -19,14 +20,31 @@
 //    directly with accurate sinf/cosf (no fast math: its arguments reach
 //    ~3,000 rad).
 //
+// K3 `nerf_mlp_fwd` replaces _fwd_kernel (launched by _fused_forward with
+//    pipe=False): K1's kernel without the spill writes, so its output is
+//    bitwise equal to K1's.  Bound: 64 B of I/O per point against the
+//    forward's MACs, ~0.078 / ~0.235 / ~0.314 ms at 65,536 / 196,608 /
+//    262,144 points: bound by operations.
+//
+// K6 `nerf_mlp_fwd` with pipe = 1 replaces _fwd_kernel_pipelined (two
+//    half-tile chains whose stages the TPU interleaves in program order, so
+//    its VLIW bundles co-issue one chain's epilogue under the other's
+//    matmuls).  Here the CTA's two warpgroups each own half its rows, with
+//    their own weight double buffer and named barrier, and the second starts
+//    one stage (the PE) behind the first: one group's bias/relu/cast
+//    epilogue runs while the other group's matmuls issue, as
+//    FlashAttention-3 overlaps softmax with GEMM.  Every output element is
+//    computed as K3 computes it, so K6 is bitwise equal to K3.  Shared
+//    memory: 213 KB at 64 rows (bf16); the fp32 check mode runs CTAs of 16
+//    rows (32 rows with a second weight buffer would need 242 KB).
+//
 // K2 `nerf_mlp_bwd_saved` replaces _bwd_saved_kernel + _grad_body
-//    (need_dx=False; launched by _fused_backward_saved).  Bound on an H100:
-//    1,149,824 MACs per point (the delta chain plus dW = act^T delta), reading
-//    5,120 B of activations: ~0.15 / ~0.46 ms at 989 TFLOP/s bf16,
-//    compute-bound.  The TPU sums dW over its sequential grid in VMEM; a
-//    Hopper CTA cannot hold 2.4 MB of fp32 partial dW and float atomics would
-//    make gradients differ from run to run.  Design, three deterministic
-//    passes:
+//    (launched by _fused_backward_saved).  Bound on an H100: the delta chain
+//    plus dW = act^T delta, reading 5,120 B of activations per point: ~0.15
+//    / ~0.46 ms at 989 TFLOP/s bf16, compute-bound.  The TPU sums dW over its
+//    sequential grid in VMEM; a Hopper CTA cannot hold 2.4 MB of fp32
+//    partial dW and float atomics would make gradients differ from run to
+//    run.  Design, three deterministic passes:
 //      (a) per tile of points: rebuild the sigma/rgb heads from the saved
 //          h7/h9, run the dh = (delta W^T) * relu_mask chain on the tensor
 //          cores and write every layer's delta (bf16) to a workspace;
@@ -35,11 +53,34 @@
 //          points and writes an fp32 partial;
 //      (c) a fixed-order sum of the partials.
 //    Two launches on the same inputs give bitwise-equal gradients.  (b) and
-//    (c) are tile_mm.cuh's dw_splitk, shared with film_mlp.cu.
+//    (c) are tile_mm.cuh's split-K pass, shared with film_mlp.cu.
+//
+// K5 `nerf_mlp_bwd` replaces _bwd_kernel + _grad_body (launched by
+//    _fused_backward): the backward that recomputes the forward.  Bound:
+//    1,741,312 MACs per point, ~0.23 / ~0.69 ms at 65,536 / 196,608 points,
+//    by operations.  A tile's ten activations do not fit in shared memory,
+//    so per chunk of points one kernel per tile recomputes the forward with
+//    K1's code (activations to a workspace) and then runs K2's delta chain
+//    (deltas to a workspace), as K7 does in film_mlp.cu; then K2's split-K
+//    pass covers the chunk.  Chunks hold whole splits of K2's split-K over
+//    all the points (the wrapper bounds them to 2 GiB of workspace), and one
+//    fixed-order sum closes: dW/db are bitwise equal to K1 -> K2's on the
+//    same inputs, whatever the chunking.  When asked, the tile also copies
+//    the deltas K4 reads (dh9, dh5, dh0) out of the chunk's workspace.
+//
+// K4 `nerf_mlp_dx` replaces _grad_body's need_dx block: dx from the stored
+//    deltas of the layers that read the PEs (K2's workspace or K5's copy):
+//    dpe_p = dh5 W5a^T + dh0 W0^T and dpe_d = dh9 W9b^T with fp32
+//    accumulation, then the chain rule through the direct PE, dx_d += 2^f
+//    (dpe[sin_f, d] cos(2^f x_d) - dpe[cos_f, d] sin(2^f x_d)), with accurate
+//    sinf/cosf (the 2^9 factor amplifies any error in the last bits).
+//    Bound: 1,344 B per point read or written, ~0.026 / ~0.079 ms: by
+//    bytes.  Its products run on the CUDA cores, each thread summing
+//    four columns for one point from 16-byte weight loads.
 //
 // bf16 = 0 is the fp32 check mode (fp32 operands, FMA on the CUDA cores).
 // Every launch goes on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// the first CUDA error.
 
 #include "tile_mm.cuh"
 
@@ -52,8 +93,11 @@ constexpr int OUT_PAD = 8, ACT_PAD = 2560, DELTA_W = 2448;
 // ACT_SLOTS columns of the activation spill
 constexpr int A_H0 = 96, A_HD = A_H0 + 8 * HID, A_H9 = A_HD + HID;
 constexpr int ACT_W = A_H9 + RGB_HID;  // 2528
-// DELTA_SLOTS columns of K2's delta workspace: dr, dsig, dh9, dhd, dh7..dh0
+// DELTA_SLOTS columns of the delta workspace: dr, dsig, dh9, dhd, dh7..dh0
 constexpr int D_DH9 = 16, D_DHD = 144, D_DH7 = 400;
+constexpr int D_DH5 = D_DH7 + 2 * HID, D_DH0 = D_DH7 + 7 * HID;
+// K5's copy of the deltas K4 reads, one row per point: dh9 | dh5 | dh0
+constexpr int PE_DW = RGB_HID + 2 * HID;  // 640
 // packed parameters, in PACK_KEYS order
 enum {
   W0, B0, W1, B1, W2, B2, W3, B3, W4, B4, W5A, W5B, B5, W6, B6, W7, B7,
@@ -61,14 +105,67 @@ enum {
 };
 struct Params { const void* p[N_PARAMS]; };
 
+template <typename T> __host__ __device__ constexpr int lda() {
+  return HID + pad16<T>();
+}
+template <typename T> __host__ __device__ constexpr int ldp() {
+  return PE_POS + pad16<T>();
+}
+template <typename T> __host__ __device__ constexpr int ldd() {
+  return PE_DIR + pad16<T>();
+}
+
+// ---------------------------------------------------------------------------
+// The forward (K1, K3, K5's recompute, K6's two halves)
+// ---------------------------------------------------------------------------
+
+// One group's view of the forward's shared buffers: its rows of C, of the
+// two activation buffers, of the PEs, of x and of sigma, and its own weight
+// double buffer.
+template <typename T> struct FwdSmem {
+  float* C;
+  T *cur, *nxt, *pe_p, *pe_d, *wbuf;
+  float *xs, *sig;
+};
+
+// Shared memory of the forward for a CTA of TM rows whose NG groups each
+// have a weight double buffer (one group: slices of either layout, so that
+// K5's delta chain can reuse it).
+template <typename T, int TM, int NG>
+constexpr size_t fwd_smem() {
+  constexpr int wb = NG == 1 ? 2 * wstage<T>() : 2 * NG * wstage_of<T, false>();
+  return (size_t)TM * CLD * 4 + 2 * (size_t)TM * lda<T>() * sizeof(T)
+         + (size_t)TM * ldp<T>() * sizeof(T)
+         + (size_t)TM * ldd<T>() * sizeof(T) + (size_t)wb * sizeof(T)
+         + (size_t)TM * IN_PAD * 4 + (size_t)TM * 4;
+}
+
+// Group g's view (rows r0..) of a CTA of TM rows with NG groups.
+template <typename T, int TM, int NG>
+__device__ FwdSmem<T> fwd_smem_view(unsigned char* smem, int r0, int g) {
+  constexpr int WB = NG == 1 ? 2 * wstage<T>() : 2 * wstage_of<T, false>();
+  float* C = reinterpret_cast<float*>(smem);
+  T* cur = reinterpret_cast<T*>(C + TM * CLD);
+  T* nxt = cur + TM * lda<T>();
+  T* pe_p = nxt + TM * lda<T>();
+  T* pe_d = pe_p + TM * ldp<T>();
+  T* wbuf = pe_d + TM * ldd<T>();
+  float* xs = reinterpret_cast<float*>(wbuf + NG * WB);
+  float* sig = xs + TM * IN_PAD;
+  return {C + r0 * CLD, cur + r0 * lda<T>(), nxt + r0 * lda<T>(),
+          pe_p + r0 * ldp<T>(), pe_d + r0 * ldd<T>(), wbuf + g * WB,
+          xs + r0 * IN_PAD, sig + r0};
+}
+
 // Forward epilogue: v = C + b (relu or linear) -> T into the tile buffer
-// (row stride lda) and into the activation spill (row stride ACT_PAD).
-template <typename T, int TM>
+// (row stride ld) and, with SPILL, into the activation spill (row stride
+// ACT_PAD).
+template <typename T, int TM, int NT, int BAR, bool SPILL>
 __device__ void epilogue_fwd(const float* C, const float* bias, int nout,
-                             bool relu, T* dst, int lda, T* spill) {
+                             bool relu, T* dst, int ld, T* spill) {
   constexpr int V = pad16<T>();
-  const int cpr = nout / V;
-  for (int c = threadIdx.x; c < TM * cpr; c += THREADS) {
+  const int cpr = nout / V, tid = threadIdx.x % NT;
+  for (int c = tid; c < TM * cpr; c += NT) {
     const int r = c / cpr, col = (c % cpr) * V;
     alignas(16) T v[V];
 #pragma unroll
@@ -76,138 +173,167 @@ __device__ void epilogue_fwd(const float* C, const float* bias, int nout,
       float x = C[r * CLD + col + i] + bias[col + i];
       v[i] = from_f<T>(relu ? fmaxf(x, 0.f) : x);
     }
-    *reinterpret_cast<uint4*>(dst + r * lda + col) =
+    *reinterpret_cast<uint4*>(dst + r * ld + col) =
         *reinterpret_cast<const uint4*>(v);
-    *reinterpret_cast<uint4*>(spill + (size_t)r * ACT_PAD + col) =
-        *reinterpret_cast<const uint4*>(v);
+    if constexpr (SPILL)
+      *reinterpret_cast<uint4*>(spill + (size_t)r * ACT_PAD + col) =
+          *reinterpret_cast<const uint4*>(v);
   }
-  __syncthreads();
+  group_sync<NT, BAR>();
 }
 
-template <typename T, int TM>
-constexpr size_t fwd_smem() {
-  return (size_t)TM * CLD * 4 + 2 * (size_t)TM * (HID + pad16<T>()) * sizeof(T)
-         + (size_t)TM * (PE_POS + pad16<T>()) * sizeof(T)
-         + (size_t)TM * (PE_DIR + pad16<T>()) * sizeof(T)
-         + 2 * (size_t)wstage<T>() * sizeof(T) + (size_t)TM * IN_PAD * 4
-         + (size_t)TM * 4;
-}
-
-template <typename T, int TM>
-__global__ void __launch_bounds__(THREADS, 1)
-fwd_save_kernel(const float* __restrict__ x, Params P,
-                float* __restrict__ out, T* __restrict__ acts) {
-  constexpr int LDA = HID + pad16<T>(), LDP = PE_POS + pad16<T>(),
-                LDD = PE_DIR + pad16<T>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* C = reinterpret_cast<float*>(smem);
-  T* cur = reinterpret_cast<T*>(C + TM * CLD);
-  T* nxt = cur + TM * LDA;
-  T* pe_p = nxt + TM * LDA;
-  T* pe_d = pe_p + TM * LDP;
-  T* wbuf = pe_d + TM * LDD;
-  float* xs = reinterpret_cast<float*>(wbuf + 2 * wstage<T>());
-  float* sig = xs + TM * IN_PAD;
-
-  const int row0 = blockIdx.x * TM;
-  T* spill = acts + (size_t)row0 * ACT_PAD;
-  auto W = [&](int i) { return reinterpret_cast<const T*>(P.p[i]); };
-  auto Bv = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
-
-  for (int i = threadIdx.x; i < TM * IN_PAD; i += THREADS)
-    xs[i] = x[(size_t)row0 * IN_PAD + i];
-  __syncthreads();
-
-  // Positional encodings, interleaved [sin_f(3), cos_f(3)] per frequency f,
-  // zero-padded: pe_p (10 freqs of pos) at spill cols 0..63, pe_d (4 of dir)
-  // at 64..95.  Spill pad cols 2528..2559 are zeroed.
-  for (int i = threadIdx.x; i < TM * (PE_POS + PE_DIR); i += THREADS) {
+// x rows -> shared memory, and the positional encodings, interleaved
+// [sin_f(3), cos_f(3)] per frequency f, zero-padded: pe_p (10 freqs of pos)
+// at spill cols 0..63, pe_d (4 of dir) at 64..95; the spill's pad cols
+// 2528..2559 are zeroed.
+template <typename T, int TM, int NT, int BAR, bool SPILL>
+__device__ void fwd_pe(const float* x, const FwdSmem<T>& s, T* spill) {
+  const int tid = threadIdx.x % NT;
+  for (int i = tid; i < TM * IN_PAD; i += NT) s.xs[i] = x[i];
+  group_sync<NT, BAR>();
+  for (int i = tid; i < TM * (PE_POS + PE_DIR); i += NT) {
     const int r = i / (PE_POS + PE_DIR), j = i % (PE_POS + PE_DIR);
     const bool pos = j < PE_POS;
     const int jj = pos ? j : j - PE_POS;
     float v = 0.f;
     if (jj < 6 * (pos ? 10 : 4)) {
       const int f = jj / 6, rem = jj % 6, d = rem % 3 + (pos ? 0 : 3);
-      const float a = xs[r * IN_PAD + d] * (float)(1 << f);
+      const float a = s.xs[r * IN_PAD + d] * (float)(1 << f);
       v = rem < 3 ? sinf(a) : cosf(a);
     }
     const T tv = from_f<T>(v);
-    if (pos) pe_p[r * LDP + jj] = tv; else pe_d[r * LDD + jj] = tv;
-    spill[(size_t)r * ACT_PAD + j] = tv;
+    if (pos) s.pe_p[r * ldp<T>() + jj] = tv;
+    else s.pe_d[r * ldd<T>() + jj] = tv;
+    if constexpr (SPILL) spill[(size_t)r * ACT_PAD + j] = tv;
   }
-  for (int i = threadIdx.x; i < TM * (ACT_PAD - ACT_W); i += THREADS) {
-    const int r = i / (ACT_PAD - ACT_W), j = i % (ACT_PAD - ACT_W);
-    spill[(size_t)r * ACT_PAD + ACT_W + j] = from_f<T>(0.f);
+  if constexpr (SPILL) {
+    for (int i = tid; i < TM * (ACT_PAD - ACT_W); i += NT) {
+      const int r = i / (ACT_PAD - ACT_W), j = i % (ACT_PAD - ACT_W);
+      spill[(size_t)r * ACT_PAD + ACT_W + j] = from_f<T>(0.f);
+    }
   }
-  __syncthreads();
+  group_sync<NT, BAR>();
+}
+
+// The layers after the PE.  SPILL: every activation to the spill; OUT: the
+// heads and the output rows [rgb(3), sigma, 0, 0, 0, 0].
+template <typename T, int TM, int NT, int BAR, bool SPILL, bool OUT>
+__device__ void fwd_layers(const Params& P, const FwdSmem<T>& s, float* out,
+                           T* spill) {
+  constexpr int LDA = lda<T>();
+  const int tid = threadIdx.x % NT;
+  auto W = [&](int i) { return reinterpret_cast<const T*>(P.p[i]); };
+  auto Bv = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
+  T* cur = s.cur;
+  T* nxt = s.nxt;
 
   Operand<T> o[2];
-  o[0] = {pe_p, LDP, PE_POS, W(W0)};
-  layer_mm<T, TM, false>(o, 1, HID, wbuf, C);
-  epilogue_fwd<T, TM>(C, Bv(B0), HID, true, cur, LDA, spill + A_H0);
+  o[0] = {s.pe_p, ldp<T>(), PE_POS, W(W0)};
+  layer_mm<T, TM, false, NT, BAR>(o, 1, HID, s.wbuf, s.C);
+  epilogue_fwd<T, TM, NT, BAR, SPILL>(s.C, Bv(B0), HID, true, cur, LDA,
+                                      spill + A_H0);
   for (int l = 1; l <= 7; ++l) {  // h1..h7; h5 adds the skip product
     if (l == 5) {
-      o[0] = {pe_p, LDP, PE_POS, W(W5A)};
+      o[0] = {s.pe_p, ldp<T>(), PE_POS, W(W5A)};
       o[1] = {cur, LDA, HID, W(W5B)};
-      layer_mm<T, TM, false>(o, 2, HID, wbuf, C);
+      layer_mm<T, TM, false, NT, BAR>(o, 2, HID, s.wbuf, s.C);
     } else {
       const int wi = l < 5 ? W0 + 2 * l : (l == 6 ? W6 : W7);
       o[0] = {cur, LDA, HID, W(wi)};
-      layer_mm<T, TM, false>(o, 1, HID, wbuf, C);
+      layer_mm<T, TM, false, NT, BAR>(o, 1, HID, s.wbuf, s.C);
     }
     const int bi = l < 5 ? B0 + 2 * l : (l == 5 ? B5 : (l == 6 ? B6 : B7));
-    epilogue_fwd<T, TM>(C, Bv(bi), HID, true, nxt, LDA,
-                        spill + A_H0 + l * HID);
+    epilogue_fwd<T, TM, NT, BAR, SPILL>(s.C, Bv(bi), HID, true, nxt, LDA,
+                                        spill + A_H0 + l * HID);
     T* tmp = cur; cur = nxt; nxt = tmp;
   }
-  // sigma head from h7 (cur), before its buffer is reused
-  {
+  if constexpr (OUT) {  // sigma head from h7 (cur), before its buffer is reused
     const T* ws = W(WS);
-    for (int r = threadIdx.x; r < TM; r += THREADS) {
-      float s = 0.f;
+    for (int r = tid; r < TM; r += NT) {
+      float sg = 0.f;
       for (int k = 0; k < HID; ++k)
-        s += to_f(cur[r * LDA + k]) * to_f(ws[k * OUT_PAD]);
-      sig[r] = fmaxf(s + Bv(BS)[0], 0.f);
+        sg += to_f(cur[r * LDA + k]) * to_f(ws[k * OUT_PAD]);
+      s.sig[r] = fmaxf(sg + Bv(BS)[0], 0.f);
     }
   }
   // hd = h7 @ W8 + b8 (linear)
   o[0] = {cur, LDA, HID, W(W8)};
-  layer_mm<T, TM, false>(o, 1, HID, wbuf, C);
-  epilogue_fwd<T, TM>(C, Bv(B8), HID, false, nxt, LDA, spill + A_HD);
+  layer_mm<T, TM, false, NT, BAR>(o, 1, HID, s.wbuf, s.C);
+  epilogue_fwd<T, TM, NT, BAR, SPILL>(s.C, Bv(B8), HID, false, nxt, LDA,
+                                      spill + A_HD);
   // h9 = relu(hd @ W9a + pe_d @ W9b + b9), 128 wide, into h7's buffer
   o[0] = {nxt, LDA, HID, W(W9A)};
-  o[1] = {pe_d, LDD, PE_DIR, W(W9B)};
-  layer_mm<T, TM, false>(o, 2, RGB_HID, wbuf, C);
-  epilogue_fwd<T, TM>(C, Bv(B9), RGB_HID, true, cur, LDA, spill + A_H9);
-  // rgb head and the output row [rgb(3), sigma, 0, 0, 0, 0]
-  {
+  o[1] = {s.pe_d, ldd<T>(), PE_DIR, W(W9B)};
+  layer_mm<T, TM, false, NT, BAR>(o, 2, RGB_HID, s.wbuf, s.C);
+  epilogue_fwd<T, TM, NT, BAR, SPILL>(s.C, Bv(B9), RGB_HID, true, cur, LDA,
+                                      spill + A_H9);
+  if constexpr (OUT) {  // rgb head and the output rows
     const T* wr = W(WR);
     const float* br = Bv(BR);
-    for (int i = threadIdx.x; i < TM * OUT_PAD; i += THREADS) {
+    for (int i = tid; i < TM * OUT_PAD; i += NT) {
       const int r = i / OUT_PAD, c = i % OUT_PAD;
       float v = 0.f;
       if (c < 3) {
-        float s = 0.f;
+        float sg = 0.f;
         for (int k = 0; k < RGB_HID; ++k)
-          s += to_f(cur[r * LDA + k]) * to_f(wr[k * OUT_PAD + c]);
-        v = 1.f / (1.f + expf(-(s + br[c])));
+          sg += to_f(cur[r * LDA + k]) * to_f(wr[k * OUT_PAD + c]);
+        v = 1.f / (1.f + expf(-(sg + br[c])));
       } else if (c == 3) {
-        v = sig[r];
+        v = s.sig[r];
       }
-      out[(size_t)(row0 + r) * OUT_PAD + c] = v;
+      out[(size_t)r * OUT_PAD + c] = v;
     }
   }
 }
 
+// K1 (SPILL) and K3: one CTA per TM rows.
+template <typename T, int TM, bool SPILL>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_kernel(const float* __restrict__ x, Params P, float* __restrict__ out,
+           T* __restrict__ acts) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t row0 = (size_t)blockIdx.x * TM;
+  const FwdSmem<T> s = fwd_smem_view<T, TM, 1>(smem, 0, 0);
+  T* spill = SPILL ? acts + row0 * ACT_PAD : nullptr;
+  fwd_pe<T, TM, THREADS, 0, SPILL>(x + row0 * IN_PAD, s, spill);
+  fwd_layers<T, TM, THREADS, 0, SPILL, true>(P, s, out + row0 * OUT_PAD,
+                                             spill);
+}
+
+// K6: warpgroup g of the CTA owns rows g * TM / 2 .. with named barrier
+// 1 + g; group 1 waits at barrier 3 until group 0 has finished its PE.
+constexpr int GROUP = 128;
+template <typename T, int TM>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_pipelined_kernel(const float* __restrict__ x, Params P,
+                     float* __restrict__ out) {
+  constexpr int H = TM / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int g = threadIdx.x / GROUP;
+  const size_t row0 = (size_t)blockIdx.x * TM + g * H;
+  const FwdSmem<T> s = fwd_smem_view<T, TM, 2>(smem, g * H, g);
+  if (g == 0) {
+    fwd_pe<T, H, GROUP, 1, false>(x + row0 * IN_PAD, s, nullptr);
+    asm volatile("bar.arrive 3, %0;\n" ::"n"(THREADS) : "memory");
+    fwd_layers<T, H, GROUP, 1, false, true>(P, s, out + row0 * OUT_PAD,
+                                            nullptr);
+  } else {
+    asm volatile("bar.sync 3, %0;\n" ::"n"(THREADS) : "memory");
+    fwd_pe<T, H, GROUP, 2, false>(x + row0 * IN_PAD, s, nullptr);
+    fwd_layers<T, H, GROUP, 2, false, true>(P, s, out + row0 * OUT_PAD,
+                                            nullptr);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// K2 (a): per-tile delta chain
+// The delta chain (K2 (a), and K5 after its recompute)
 // ---------------------------------------------------------------------------
 
 // Backward epilogue: d = (C [+ dsig * Ws[:, 0]]) * (act > 0) -> T into the
 // tile buffer and the delta workspace.
 template <typename T, int TM>
 __device__ void epilogue_bwd(const float* C, const T* act, const float* dsig,
-                             const T* ws, T* dst, int lda, T* dl) {
+                             const T* ws, T* dst, int ld, T* dl) {
   constexpr int V = pad16<T>();
   constexpr int cpr = HID / V;
   for (int c = threadIdx.x; c < TM * cpr; c += THREADS) {
@@ -224,7 +350,7 @@ __device__ void epilogue_bwd(const float* C, const T* act, const float* dsig,
       if (act && !(to_f(m[i]) > 0.f)) x = 0.f;
       v[i] = from_f<T>(x);
     }
-    *reinterpret_cast<uint4*>(dst + r * lda + col) =
+    *reinterpret_cast<uint4*>(dst + r * ld + col) =
         *reinterpret_cast<const uint4*>(v);
     *reinterpret_cast<uint4*>(dl + (size_t)r * DELTA_W + col) =
         *reinterpret_cast<const uint4*>(v);
@@ -234,25 +360,21 @@ __device__ void epilogue_bwd(const float* C, const T* act, const float* dsig,
 
 template <typename T, int TM>
 constexpr size_t delta_smem() {
-  return (size_t)TM * CLD * 4 + 2 * (size_t)TM * (HID + pad16<T>()) * sizeof(T)
+  return (size_t)TM * CLD * 4 + 2 * (size_t)TM * lda<T>() * sizeof(T)
          + 2 * (size_t)wstage<T>() * sizeof(T) + (size_t)TM * 16 * 4;
 }
 
+// The chain for one tile of TM rows from its activations `act` (row stride
+// ACT_PAD) and output gradient dy, every delta to `dl` (row stride DELTA_W).
 template <typename T, int TM>
-__global__ void __launch_bounds__(THREADS, 1)
-bwd_delta_kernel(Params P, const float* __restrict__ dy,
-                 const T* __restrict__ acts, T* __restrict__ deltas) {
-  constexpr int LDA = HID + pad16<T>();
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ void delta_tile(const Params& P, const float* dy, const T* act,
+                           T* dl, unsigned char* smem) {
+  constexpr int LDA = lda<T>();
   float* C = reinterpret_cast<float*>(smem);
   T* cur = reinterpret_cast<T*>(C + TM * CLD);
   T* nxt = cur + TM * LDA;
   T* wbuf = nxt + TM * LDA;
   float* small = reinterpret_cast<float*>(wbuf + 2 * wstage<T>());
-
-  const int row0 = blockIdx.x * TM;
-  const T* act = acts + (size_t)row0 * ACT_PAD;
-  T* dl = deltas + (size_t)row0 * DELTA_W;
   auto W = [&](int i) { return reinterpret_cast<const T*>(P.p[i]); };
   auto Bv = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
 
@@ -268,14 +390,14 @@ bwd_delta_kernel(Params P, const float* __restrict__ dy,
         s += to_f(act[(size_t)r * ACT_PAD + A_H9 + k])
              * to_f(W(WR)[k * OUT_PAD + c]);
       const float rgb = 1.f / (1.f + expf(-(s + Bv(BR)[c])));
-      v = dy[(size_t)(row0 + r) * OUT_PAD + c] * rgb * (1.f - rgb);
+      v = dy[(size_t)r * OUT_PAD + c] * rgb * (1.f - rgb);
     } else if (c == 8) {
       float s = 0.f;
       for (int k = 0; k < HID; ++k)
         s += to_f(act[(size_t)r * ACT_PAD + A_H0 + 7 * HID + k])
              * to_f(W(WS)[k * OUT_PAD]);
       const float sg = fmaxf(s + Bv(BS)[0], 0.f);
-      v = sg > 0.f ? dy[(size_t)(row0 + r) * OUT_PAD + 3] : 0.f;
+      v = sg > 0.f ? dy[(size_t)r * OUT_PAD + 3] : 0.f;
     }
     const T tv = from_f<T>(v);
     dl[(size_t)r * DELTA_W + c] = tv;
@@ -317,26 +439,210 @@ bwd_delta_kernel(Params P, const float* __restrict__ dy,
   }
 }
 
+// K2 (a): the chain from the saved activations.
 template <typename T, int TM>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_delta_kernel(Params P, const float* __restrict__ dy,
+                 const T* __restrict__ acts, T* __restrict__ deltas) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t row0 = (size_t)blockIdx.x * TM;
+  delta_tile<T, TM>(P, dy + row0 * OUT_PAD, acts + row0 * ACT_PAD,
+                    deltas + row0 * DELTA_W, smem);
+}
+
+template <typename T, int TM>
+constexpr size_t recompute_smem() {
+  return fwd_smem<T, TM, 1>() > delta_smem<T, TM>() ? fwd_smem<T, TM, 1>()
+                                                    : delta_smem<T, TM>();
+}
+
+// K5 per tile: K1's forward into the chunk's activation workspace, then the
+// chain.  x and dy start at the chunk; acts and deltas are written and read
+// here, so they carry no __restrict__ (no read-only loads of them).
+template <typename T, int TM>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_recompute_kernel(const float* __restrict__ x, Params P,
+                     const float* __restrict__ dy, T* acts, T* deltas,
+                     T* __restrict__ pe_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t row0 = (size_t)blockIdx.x * TM;
+  T* at = acts + row0 * ACT_PAD;
+  T* dl = deltas + row0 * DELTA_W;
+  const FwdSmem<T> s = fwd_smem_view<T, TM, 1>(smem, 0, 0);
+  fwd_pe<T, TM, THREADS, 0, true>(x + row0 * IN_PAD, s, at);
+  fwd_layers<T, TM, THREADS, 0, true, false>(P, s, nullptr, at);
+  delta_tile<T, TM>(P, dy + row0 * OUT_PAD, at, dl, smem);
+  if (pe_out) {  // dh9 | dh5 | dh0 for K4 (delta_tile ends synchronised)
+    constexpr int V = pad16<T>(), CPR = PE_DW / V;
+    T* po = pe_out + row0 * PE_DW;
+    for (int i = threadIdx.x; i < TM * CPR; i += THREADS) {
+      const int r = i / CPR, c = (i % CPR) * V;
+      const int src = c < RGB_HID ? D_DH9 + c
+                      : (c < RGB_HID + HID ? D_DH5 + c - RGB_HID
+                                           : D_DH0 + c - RGB_HID - HID);
+      *reinterpret_cast<uint4*>(po + (size_t)r * PE_DW + c) =
+          *reinterpret_cast<const uint4*>(dl + (size_t)r * DELTA_W + src);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: the input gradient through the PE
+// ---------------------------------------------------------------------------
+
+constexpr int DX_TM = 32;                   // points per CTA: one per lane
+// fp32 delta row stride in smem: 16-byte aligned rows whose float4 reads by
+// the lanes of a quarter warp fall in distinct banks
+constexpr int DX_LD = PE_DW + 4;
+constexpr int DPE_W = PE_POS + PE_DIR;      // 96
+constexpr size_t DX_SMEM =
+    ((size_t)DX_TM * DX_LD + (size_t)DX_TM * (DPE_W + 1) + DX_TM * IN_PAD) * 4;
+
+constexpr int JB = 4;  // dpe columns per thread
+
+// acc[jj] += sum_k dv[k] w[jj * kdim + k] for k = 0..kdim-1 in order, jj <
+// JB: dv a row of deltas in shared memory (fp32), w JB rows of weights
+// (kdim apart), read 16 bytes at a time.
+template <typename T>
+__device__ __forceinline__ void dx_dot(const float* dv, const T* w, int kdim,
+                                       float* acc) {
+  constexpr int V = pad16<T>();
+  for (int k = 0; k < kdim; k += V) {
+    alignas(16) float a[V];
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(a + i) =
+          *reinterpret_cast<const float4*>(dv + k + i);
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) {
+      alignas(16) T wv[V];
+      *reinterpret_cast<uint4*>(wv) =
+          *reinterpret_cast<const uint4*>(w + jj * kdim + k);
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[jj] += a[i] * to_f(wv[i]);
+    }
+  }
+}
+
+// grid n / DX_TM.  dh9/dh5/dh0 rows have stride ld (elements).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+dx_kernel(const float* __restrict__ x, Params P, const T* __restrict__ dh9,
+          const T* __restrict__ dh5, const T* __restrict__ dh0, int ld,
+          float* __restrict__ dx) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* d = reinterpret_cast<float*>(smem);    // [DX_TM][DX_LD]
+  float* dpe = d + DX_TM * DX_LD;               // [DX_TM][DPE_W + 1]
+  float* xs = dpe + DX_TM * (DPE_W + 1);        // [DX_TM][IN_PAD]
+  const size_t row0 = (size_t)blockIdx.x * DX_TM;
+  auto W = [&](int i) { return reinterpret_cast<const T*>(P.p[i]); };
+
+  // the tile's deltas: every thread's 16-byte loads issued, then widened
+  constexpr int V = pad16<T>(), CPR = PE_DW / V, PER = DX_TM * CPR / THREADS;
+  static_assert(DX_TM * CPR % THREADS == 0, "whole loads per thread");
+  uint4 raw[PER];
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * THREADS, r = i / CPR, c = (i % CPR) * V;
+    const size_t row = (row0 + r) * (size_t)ld;
+    const T* src = c < RGB_HID ? dh9 + row + c
+                   : (c < RGB_HID + HID ? dh5 + row + c - RGB_HID
+                                        : dh0 + row + c - RGB_HID - HID);
+    raw[it] = *reinterpret_cast<const uint4*>(src);
+  }
+#pragma unroll
+  for (int it = 0; it < PER; ++it) {
+    const int i = threadIdx.x + it * THREADS, r = i / CPR, c = (i % CPR) * V;
+    const T* v = reinterpret_cast<const T*>(&raw[it]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) d[r * DX_LD + c + j] = to_f(v[j]);
+  }
+  for (int i = threadIdx.x; i < DX_TM * IN_PAD; i += THREADS)
+    xs[i] = x[row0 * IN_PAD + i];
+  __syncthreads();
+  // dpe[r, j]: lane = point r; each warp takes blocks of JB columns (warp-
+  // uniform: the weights' 16-byte loads are broadcasts) and sums over k in
+  // order; pe_p cols 60..63 and pe_d cols 24..31 are padding (zero).
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* dr = d + lane * DX_LD;
+  float* out_r = dpe + lane * (DPE_W + 1);
+  for (int blk = warp; blk < DPE_W / JB; blk += THREADS / 32) {
+    const int j0 = blk * JB;
+    const bool pos = j0 < PE_POS;
+    float acc[2][JB];
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) acc[0][jj] = acc[1][jj] = 0.f;
+    if (pos ? j0 >= 60 : j0 - PE_POS >= 24) {
+      // padding columns
+    } else if (pos) {  // dh5 W5a^T and dh0 W0^T, summed apart
+      dx_dot<T>(dr + RGB_HID, W(W5A) + j0 * HID, HID, acc[0]);
+      dx_dot<T>(dr + RGB_HID + HID, W(W0) + j0 * HID, HID, acc[1]);
+    } else {  // dh9 W9b^T
+      dx_dot<T>(dr, W(W9B) + (j0 - PE_POS) * RGB_HID, RGB_HID, acc[0]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) out_r[j0 + jj] = acc[0][jj] + acc[1][jj];
+  }
+  __syncthreads();
+  // dx[r, c] = sum_f 2^f (dpe[sin_f] cos(2^f x) - dpe[cos_f] sin(2^f x))
+  {
+    const int r = threadIdx.x / IN_PAD, c = threadIdx.x % IN_PAD;
+    float g = 0.f;
+    if (c < 6) {
+      const bool pos = c < 3;
+      const int n_freq = pos ? 10 : 4, dd = pos ? c : c - 3;
+      const float* dp = dpe + r * (DPE_W + 1) + (pos ? 0 : PE_POS);
+      const float xv = xs[r * IN_PAD + c];
+      for (int f = 0; f < n_freq; ++f) {
+        const float sc = (float)(1 << f), a = xv * sc;
+        g += sc * (dp[f * 6 + dd] * cosf(a) - dp[f * 6 + 3 + dd] * sinf(a));
+      }
+    }
+    dx[(row0 + r) * IN_PAD + c] = g;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int TM, bool SPILL>
 int fwd_launch(const float* x, const Params& P, float* out, void* acts,
                int n, cudaStream_t st) {
-  auto kern = fwd_save_kernel<T, TM>;
-  constexpr size_t sm = fwd_smem<T, TM>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  auto kern = fwd_kernel<T, TM, SPILL>;
+  constexpr size_t sm = fwd_smem<T, TM, 1>();
+  cudaError_t e = set_smem(kern, sm);
   if (e != cudaSuccess) return (int)e;
   kern<<<n / TM, THREADS, sm, st>>>(x, P, out, reinterpret_cast<T*>(acts));
   return (int)cudaGetLastError();
 }
 
 template <typename T, int TM>
-int bwd_launch(const Params& P, const float* dy, const void* acts,
-               void* deltas, float* partials, float* dw, int n, int splits,
-               const Tasks& tk, int total, cudaStream_t st) {
+int fwd_pipelined_launch(const float* x, const Params& P, float* out, int n,
+                         cudaStream_t st) {
+  auto kern = fwd_pipelined_kernel<T, TM>;
+  constexpr size_t sm = fwd_smem<T, TM, 2>();
+  static_assert(sm <= 232448, "K6 exceeds a block's shared memory");
+  cudaError_t e = set_smem(kern, sm);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<n / TM, THREADS, sm, st>>>(x, P, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TM>
+int bwd_saved_launch(const Params& P, const float* dy, const void* acts,
+                     void* deltas, float* partials, float* dw, int n,
+                     int splits, const Tasks& tk, int total,
+                     cudaStream_t st) {
   auto kd = bwd_delta_kernel<T, TM>;
   constexpr size_t smd = delta_smem<T, TM>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smd);
+  cudaError_t e = set_smem(kd, smd);
   if (e != cudaSuccess) return (int)e;
   kd<<<n / TM, THREADS, smd, st>>>(P, dy, reinterpret_cast<const T*>(acts),
                                    reinterpret_cast<T*>(deltas));
@@ -347,19 +653,88 @@ int bwd_launch(const Params& P, const float* dy, const void* acts,
                            partials, dw, n, splits, tk, total, 0, st);
 }
 
+// K5: chunks of chunk_rows points (whole splits of cps * PK points each, the
+// last chunk the rest), each a recompute launch and its splits' partials;
+// then one sum over all `splits`.
+template <typename T, int TM>
+int bwd_launch(const float* x, const Params& P, const float* dy, void* acts,
+               void* deltas, int chunk_rows, void* pe_out, float* partials,
+               float* dw, int n, int splits, const Tasks& tk, int total,
+               cudaStream_t st) {
+  auto kr = bwd_recompute_kernel<T, TM>;
+  constexpr size_t sm = recompute_smem<T, TM>();
+  cudaError_t e = set_smem(kr, sm);
+  if (e != cudaSuccess) return (int)e;
+  const int cps = chunks_per_split(n, splits), per_split = cps * PK;
+  if (chunk_rows < 1
+      || (chunk_rows < n && (chunk_rows % per_split || chunk_rows % 128)))
+    return (int)cudaErrorInvalidValue;
+  T* a = reinterpret_cast<T*>(acts);
+  T* d = reinterpret_cast<T*>(deltas);
+  T* po = reinterpret_cast<T*>(pe_out);
+  for (int r0 = 0; r0 < n; r0 += chunk_rows) {
+    const int rows = min(chunk_rows, n - r0);
+    kr<<<rows / TM, THREADS, sm, st>>>(x + (size_t)r0 * IN_PAD, P,
+                                       dy + (size_t)r0 * OUT_PAD, a, d,
+                                       po ? po + (size_t)r0 * PE_DW : nullptr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    const int s0 = r0 / per_split;
+    const int ns = r0 + rows < n ? rows / per_split : splits - s0;
+    e = dw_partials<T>(a, ACT_PAD, d, DELTA_W, partials + (size_t)s0 * total,
+                       rows, ns, cps, tk, total, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)sum_splits(partials, dw, total, splits, 0, st);
+}
+
+template <typename T>
+int dx_launch(const float* x, const Params& P, const void* dh9,
+              const void* dh5, const void* dh0, int ld, float* dx, int n,
+              cudaStream_t st) {
+  auto kern = dx_kernel<T>;
+  cudaError_t e = set_smem(kern, DX_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<n / DX_TM, THREADS, DX_SMEM, st>>>(
+      x, P, reinterpret_cast<const T*>(dh9), reinterpret_cast<const T*>(dh5),
+      reinterpret_cast<const T*>(dh0), ld, dx);
+  return (int)cudaGetLastError();
+}
+
+Params make_params(const void* const* w) {
+  Params P;
+  for (int i = 0; i < N_PARAMS; ++i) P.p[i] = w[i];
+  return P;
+}
+
 }  // namespace
 
+// K1: out [n, 8] and the activation spill [n, ACT_PAD].
 extern "C" int nerf_mlp_fwd_save(const float* x, const void* const* w,
                                  float* out, void* acts, int n, int bf16,
                                  void* stream) {
-  Params P;
-  for (int i = 0; i < N_PARAMS; ++i) P.p[i] = w[i];
+  const Params P = make_params(w);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (n % 128) return (int)cudaErrorInvalidValue;
-  return bf16 ? fwd_launch<bf16_t, 64>(x, P, out, acts, n, st)
-              : fwd_launch<float, 32>(x, P, out, acts, n, st);
+  return bf16 ? fwd_launch<bf16_t, 64, true>(x, P, out, acts, n, st)
+              : fwd_launch<float, 32, true>(x, P, out, acts, n, st);
 }
 
+// K3 (pipe = 0) or K6 (pipe = 1): out [n, 8].
+extern "C" int nerf_mlp_fwd(const float* x, const void* const* w, float* out,
+                            int n, int pipe, int bf16, void* stream) {
+  const Params P = make_params(w);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (n % 128) return (int)cudaErrorInvalidValue;
+  if (pipe)
+    return bf16 ? fwd_pipelined_launch<bf16_t, 64>(x, P, out, n, st)
+                : fwd_pipelined_launch<float, 16>(x, P, out, n, st);
+  return bf16 ? fwd_launch<bf16_t, 64, false>(x, P, out, nullptr, n, st)
+              : fwd_launch<float, 32, false>(x, P, out, nullptr, n, st);
+}
+
+// K2: the packed gradients into dw from dy [n, 8] and the spill; deltas
+// [n, DELTA_W] is its workspace (and K4's input), partials [splits, total].
 extern "C" int nerf_mlp_bwd_saved(const void* const* w, const float* dy,
                                   const void* acts, void* deltas,
                                   float* partials, float* dw, int n,
@@ -367,13 +742,49 @@ extern "C" int nerf_mlp_bwd_saved(const void* const* w, const float* dy,
                                   int bf16, void* stream) {
   if (n % 128 || n_tasks > MAX_TASKS || splits < 1)
     return (int)cudaErrorInvalidValue;
-  Params P;
-  for (int i = 0; i < N_PARAMS; ++i) P.p[i] = w[i];
+  const Params P = make_params(w);
   Tasks tk;
   const int total = make_tasks(tasks, n_tasks, tk);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? bwd_launch<bf16_t, 64>(P, dy, acts, deltas, partials, dw, n,
-                                       splits, tk, total, st)
-              : bwd_launch<float, 32>(P, dy, acts, deltas, partials, dw, n,
-                                      splits, tk, total, st);
+  return bf16 ? bwd_saved_launch<bf16_t, 64>(P, dy, acts, deltas, partials,
+                                             dw, n, splits, tk, total, st)
+              : bwd_saved_launch<float, 32>(P, dy, acts, deltas, partials, dw,
+                                            n, splits, tk, total, st);
+}
+
+// K5: the packed gradients into dw from x and dy [n, 8].  acts
+// [chunk_rows, ACT_PAD] and deltas [chunk_rows, DELTA_W] are its
+// workspaces, partials [splits, total]; chunk_rows is a multiple of 128 and
+// of a split's points.  pe_out ([n, 640]: dh9 | dh5 | dh0, K4's input) may
+// be null.
+extern "C" int nerf_mlp_bwd(const float* x, const void* const* w,
+                            const float* dy, void* acts, void* deltas,
+                            int chunk_rows, void* pe_out, float* partials,
+                            float* dw, int n, int splits, const int* tasks,
+                            int n_tasks, int bf16, void* stream) {
+  if (n % 128 || n_tasks > MAX_TASKS || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const Params P = make_params(w);
+  Tasks tk;
+  const int total = make_tasks(tasks, n_tasks, tk);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return bf16 ? bwd_launch<bf16_t, 64>(x, P, dy, acts, deltas, chunk_rows,
+                                       pe_out, partials, dw, n, splits, tk,
+                                       total, st)
+              : bwd_launch<float, 32>(x, P, dy, acts, deltas, chunk_rows,
+                                      pe_out, partials, dw, n, splits, tk,
+                                      total, st);
+}
+
+// K4: dx [n, 8] from x [n, 8] and the deltas dh9 [n, 128], dh5 and dh0
+// [n, 256], rows ld elements apart (16-byte aligned rows).
+extern "C" int nerf_mlp_dx(const float* x, const void* const* w,
+                           const void* dh9, const void* dh5, const void* dh0,
+                           int ld, float* dx, int n, int bf16, void* stream) {
+  static_assert(DX_TM * IN_PAD == THREADS, "one thread per dx element");
+  if (n % DX_TM || ld < HID || ld % 8) return (int)cudaErrorInvalidValue;
+  const Params P = make_params(w);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return bf16 ? dx_launch<bf16_t>(x, P, dh9, dh5, dh0, ld, dx, n, st)
+              : dx_launch<float>(x, P, dh9, dh5, dh0, ld, dx, n, st);
 }

@@ -2,11 +2,13 @@
 // the per-tile layer product on the tensor cores, and the deterministic
 // split-K dW = act^T delta with its fixed-order sum.
 //
-// A CTA of THREADS threads owns a tile of TM points.  Its activations live in
-// shared memory (row stride HID + pad); each layer's weights stream through
-// shared memory in KS-row slices (cp.async double buffer) and the product is
-// accumulated in fp32 (WMMA bf16 on the tensor cores, or FMA on the CUDA
-// cores in the fp32 check mode, T = float).
+// A group of NT threads (a whole CTA of THREADS, or one warpgroup of it
+// synchronised by its own named barrier) owns a tile of TM points.  Its
+// activations live in shared memory (row stride HID + pad); each layer's
+// weights stream through shared memory in KS-row slices (cp.async double
+// buffer) and the product is accumulated in fp32 (WMMA bf16 on the tensor
+// cores, or FMA on the CUDA cores in the fp32 check mode, T = float).  Each
+// output element sums its products in the same order whatever NT and TM are.
 
 #pragma once
 
@@ -32,10 +34,15 @@ template <typename T> __host__ __device__ constexpr bool is_bf16() {
 template <typename T> __host__ __device__ constexpr int pad16() {
   return 16 / (int)sizeof(T);
 }
-// a weight slice, either layout: [KS][HID + pad] or [HID][KS + pad]
+// a weight slice: [KS][HID + pad] (W), or [HID][KS + pad] (TRANS, W^T)
+template <typename T, bool TRANS>
+__host__ __device__ constexpr int wstage_of() {
+  return TRANS ? HID * (KS + pad16<T>()) : KS * (HID + pad16<T>());
+}
+// a slice of either layout
 template <typename T> __host__ __device__ constexpr int wstage() {
-  return KS * (HID + pad16<T>()) > HID * (KS + pad16<T>())
-             ? KS * (HID + pad16<T>()) : HID * (KS + pad16<T>());
+  return wstage_of<T, false>() > wstage_of<T, true>() ? wstage_of<T, false>()
+                                                      : wstage_of<T, true>();
 }
 constexpr int CLD = HID + 4;  // fp32 accumulator staging row stride
 
@@ -72,6 +79,18 @@ template <int N> __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The barrier of a group of NT threads: __syncthreads for the whole CTA, else
+// named barrier BAR (1..15) of one warpgroup.
+template <int NT, int BAR>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (NT == THREADS) {
+    __syncthreads();
+  } else {
+    static_assert(BAR > 0 && BAR < 16 && NT % 32 == 0, "named barrier");
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(NT) : "memory");
+  }
+}
+
 // One product of a layer: A [TM, k] in shared memory (row stride lda) times
 // W [k, nout] (row-major in global memory), or, with TRANS, times W^T where
 // W is [nout, k] row-major.
@@ -82,65 +101,69 @@ template <typename T> struct Operand {
   const T* w;
 };
 
-template <typename T, bool TRANS>
+template <typename T, bool TRANS, int NT>
 __device__ __forceinline__ void load_slice(const Operand<T>& op, int k0,
-                                           int nout, T* wb) {
+                                           int nout, T* wb, int tid) {
   constexpr int V = pad16<T>();
   if (!TRANS) {
     const int ldw = nout + pad16<T>(), cpr = nout / V;
-    for (int c = threadIdx.x; c < KS * cpr; c += THREADS) {
+    for (int c = tid; c < KS * cpr; c += NT) {
       const int r = c / cpr, col = (c % cpr) * V;
       cp16(wb + r * ldw + col, op.w + (size_t)(k0 + r) * nout + col);
     }
   } else {
     constexpr int ldw = KS + pad16<T>(), cpr = KS / V;
-    for (int c = threadIdx.x; c < nout * cpr; c += THREADS) {
+    for (int c = tid; c < nout * cpr; c += NT) {
       const int n = c / cpr, col = (c % cpr) * V;
       cp16(wb + n * ldw + col, op.w + (size_t)n * op.k + k0 + col);
     }
   }
 }
 
-// C[TM, nout] (fp32, row stride CLD) = sum over ops of A @ W (or A @ W^T).
-// nout is 256 or 128.  Starts and ends with the block synchronised.
-template <typename T, int TM, bool TRANS>
+// C[TM, nout] (fp32, row stride CLD) = sum over ops of A @ W (or A @ W^T),
+// by the group of NT threads (barrier BAR) that owns these TM rows; wbuf
+// holds two slices (2 * wstage_of<T, TRANS>()).  nout is 256 or 128.
+// Starts and ends with the group synchronised.
+template <typename T, int TM, bool TRANS, int NT = THREADS, int BAR = 0>
 __device__ void layer_mm(const Operand<T>* ops, int n_ops, int nout, T* wbuf,
                          float* C) {
+  const int tid = threadIdx.x % NT;
   const int n0 = ops[0].k / KS;
   const int S = n0 + (n_ops > 1 ? ops[1].k / KS : 0);
   auto slice = [&](int s, const Operand<T>*& op, int& k0) {
     if (s < n0) { op = &ops[0]; k0 = s * KS; }
     else { op = &ops[1]; k0 = (s - n0) * KS; }
   };
-  constexpr int STAGE = wstage<T>();
+  constexpr int STAGE = wstage_of<T, TRANS>();
   {
     const Operand<T>* op; int k0;
     slice(0, op, k0);
-    load_slice<T, TRANS>(*op, k0, nout, wbuf);
+    load_slice<T, TRANS, NT>(*op, k0, nout, wbuf, tid);
     cp_commit();
   }
   if constexpr (is_bf16<T>()) {
-    constexpr int FR = TM / 16;
-    const int warp = threadIdx.x / 32;
-    const int wcols = nout / 8, nfc = wcols / 16, col0 = warp * wcols;
+    constexpr int FR = TM / 16, WARPS = NT / 32, NF = HID / WARPS / 16;
+    const int warp = tid / 32;
+    const int wcols = nout / WARPS, nfc = wcols / 16, col0 = warp * wcols;
     typedef typename std::conditional<TRANS, wmma::col_major,
                                       wmma::row_major>::type BLayout;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR][2];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR][NF];
 #pragma unroll
     for (int i = 0; i < FR; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+      for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
     for (int s = 0; s < S; ++s) {
       if (s + 1 < S) {
         const Operand<T>* op; int k0;
         slice(s + 1, op, k0);
-        load_slice<T, TRANS>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE);
+        load_slice<T, TRANS, NT>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE,
+                                 tid);
         cp_commit();
         cp_wait<1>();
       } else {
         cp_wait<0>();
       }
-      __syncthreads();
+      group_sync<NT, BAR>();
       const T* wb = wbuf + (s & 1) * STAGE;
       const Operand<T>* op; int k0;
       slice(s, op, k0);
@@ -153,7 +176,7 @@ __device__ void layer_mm(const Operand<T>* ops, int n_ops, int nout, T* wbuf,
           wmma::load_matrix_sync(fa[i], op->a + i * 16 * op->lda + k0 + kk,
                                  op->lda);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < NF; ++j) {
           if (j < nfc) {
             wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, BLayout> fb;
             if constexpr (TRANS)
@@ -170,51 +193,66 @@ __device__ void layer_mm(const Operand<T>* ops, int n_ops, int nout, T* wbuf,
           }
         }
       }
-      __syncthreads();
+      group_sync<NT, BAR>();
     }
 #pragma unroll
     for (int i = 0; i < FR; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < NF; ++j)
         if (j < nfc)
           wmma::store_matrix_sync(C + i * 16 * CLD + col0 + j * 16,
                                   acc[i][j], CLD, wmma::mem_row_major);
   } else {
-    // fp32 check mode: one output column per thread, TM/(256/nout) rows
-    const int rows = TM / (THREADS / nout);
-    const int col = threadIdx.x % nout, r0 = (threadIdx.x / nout) * rows;
-    float acc[TM];
+    // fp32 check mode: a thread owns cpt columns, ct apart (ct threads
+    // across the columns), and `rows` rows of them
+    constexpr int NC = HID / NT > 1 ? HID / NT : 1;
+    const int ct = nout < NT ? nout : NT, cpt = nout / ct;
+    const int rows = TM / (NT / ct);
+    const int c0 = tid % ct, r0 = (tid / ct) * rows;
+    float acc[NC][TM];
 #pragma unroll
-    for (int r = 0; r < TM; ++r) acc[r] = 0.f;
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int r = 0; r < TM; ++r) acc[j][r] = 0.f;
     for (int s = 0; s < S; ++s) {
       if (s + 1 < S) {
         const Operand<T>* op; int k0;
         slice(s + 1, op, k0);
-        load_slice<T, TRANS>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE);
+        load_slice<T, TRANS, NT>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE,
+                                 tid);
         cp_commit();
         cp_wait<1>();
       } else {
         cp_wait<0>();
       }
-      __syncthreads();
+      group_sync<NT, BAR>();
       const T* wb = wbuf + (s & 1) * STAGE;
       const Operand<T>* op; int k0;
       slice(s, op, k0);
       for (int k = 0; k < KS; ++k) {
-        const float w = TRANS ? to_f(wb[col * (KS + pad16<T>()) + k])
-                              : to_f(wb[k * (nout + pad16<T>()) + col]);
         const T* a = op->a + r0 * op->lda + k0 + k;
 #pragma unroll
-        for (int r = 0; r < TM; ++r)
-          if (r < rows) acc[r] += to_f(a[r * op->lda]) * w;
+        for (int j = 0; j < NC; ++j) {
+          if (j < cpt) {
+            const int col = c0 + j * ct;
+            const float w = TRANS ? to_f(wb[col * (KS + pad16<T>()) + k])
+                                  : to_f(wb[k * (nout + pad16<T>()) + col]);
+#pragma unroll
+            for (int r = 0; r < TM; ++r)
+              if (r < rows) acc[j][r] += to_f(a[r * op->lda]) * w;
+          }
+        }
       }
-      __syncthreads();
+      group_sync<NT, BAR>();
     }
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
-      if (r < rows) C[(r0 + r) * CLD + col] = acc[r];
+    for (int j = 0; j < NC; ++j)
+      if (j < cpt)
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+          if (r < rows) C[(r0 + r) * CLD + c0 + j * ct] = acc[j][r];
   }
-  __syncthreads();
+  group_sync<NT, BAR>();
 }
 
 // ---------------------------------------------------------------------------
@@ -254,14 +292,15 @@ constexpr size_t dw_smem() {
 }
 
 // grid (tiles of all tasks, splits): each CTA owns one 64x64 output tile and
-// the fixed point range of its split, and writes an fp32 partial
+// the fixed point range of its split (cps chunks of PK points, the last
+// split's possibly fewer or none), and writes an fp32 partial
 // (partials[split][total]).  acts/deltas are row-major with row strides
 // act_ld/delta_ld; n_pts is a multiple of PK.
 template <typename T>
 __global__ void __launch_bounds__(DW_THREADS)
 dw_splitk_kernel(const T* __restrict__ acts, int act_ld,
                  const T* __restrict__ deltas, int delta_ld,
-                 float* __restrict__ partials, int n_pts, int total,
+                 float* __restrict__ partials, int n_pts, int cps, int total,
                  Tasks tk) {
   constexpr int LD = TT + pad16<T>(), V = pad16<T>(), CPR = TT / V;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -276,7 +315,6 @@ dw_splitk_kernel(const T* __restrict__ acts, int act_ld,
   const int local = (int)blockIdx.x - tk.tile_start[t], ntn = (N + TT - 1) / TT;
   const int m0 = (local / ntn) * TT, n0 = (local % ntn) * TT;
   const int n_chunks = n_pts / PK;
-  const int cps = (n_chunks + gridDim.y - 1) / gridDim.y;
   const int c_lo = min((int)blockIdx.y * cps, n_chunks);
   const int c_hi = min(c_lo + cps, n_chunks);
 
@@ -381,24 +419,47 @@ __global__ void sum_splits_kernel(const float* __restrict__ partials,
   dw[i] = accumulate ? dw[i] + s : s;
 }
 
-// The split-K pass and its sum on `st`; returns the first CUDA error.
+// Chunks of PK points per split when n_pts points are cut into `splits`.
+inline int chunks_per_split(int n_pts, int splits) {
+  return (n_pts / PK + splits - 1) / splits;
+}
+
+// The split-K pass alone: `splits` partials of cps chunks each, from n_pts
+// points, on `st`; returns the first CUDA error.
 template <typename T>
-cudaError_t dw_splitk(const T* acts, int act_ld, const T* deltas,
-                      int delta_ld, float* partials, float* dw, int n_pts,
-                      int splits, const Tasks& tk, int total, int accumulate,
-                      cudaStream_t st) {
+cudaError_t dw_partials(const T* acts, int act_ld, const T* deltas,
+                        int delta_ld, float* partials, int n_pts, int splits,
+                        int cps, const Tasks& tk, int total, cudaStream_t st) {
   auto kw = dw_splitk_kernel<T>;
   constexpr size_t smw = dw_smem<T>();
   cudaError_t e = cudaFuncSetAttribute(
       kw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smw);
   if (e != cudaSuccess) return e;
   kw<<<dim3(tk.tile_start[tk.n], splits), DW_THREADS, smw, st>>>(
-      acts, act_ld, deltas, delta_ld, partials, n_pts, total, tk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+      acts, act_ld, deltas, delta_ld, partials, n_pts, cps, total, tk);
+  return cudaGetLastError();
+}
+
+inline cudaError_t sum_splits(const float* partials, float* dw, int total,
+                              int splits, int accumulate, cudaStream_t st) {
   sum_splits_kernel<<<(total + 255) / 256, 256, 0, st>>>(partials, dw, total,
                                                          splits, accumulate);
   return cudaGetLastError();
+}
+
+// The split-K pass over n_pts points in `splits` even ranges and its sum on
+// `st`; returns the first CUDA error.
+template <typename T>
+cudaError_t dw_splitk(const T* acts, int act_ld, const T* deltas,
+                      int delta_ld, float* partials, float* dw, int n_pts,
+                      int splits, const Tasks& tk, int total, int accumulate,
+                      cudaStream_t st) {
+  cudaError_t e = dw_partials<T>(acts, act_ld, deltas, delta_ld, partials,
+                                 n_pts, splits,
+                                 chunks_per_split(n_pts, splits), tk, total,
+                                 st);
+  if (e != cudaSuccess) return e;
+  return sum_splits(partials, dw, total, splits, accumulate, st);
 }
 
 }  // namespace tile_mm

@@ -1,9 +1,12 @@
-"""Fused NeRF MLP for the train step: forward that saves activations (K1) and
-backward from those activations (K2), with ``need_dx=False``.
+"""Fused NeRF MLP: the port of ``fused_nerf_apply`` and its six kernels.
 
-Port of ``msra_practice_project_tpu/ops/pallas/nerf_mlp.py``: K1 replaces
-``_fwd_save_kernel`` (launched by ``_fused_forward_save``), K2 replaces
-``_bwd_saved_kernel`` + ``_grad_body`` (launched by ``_fused_backward_saved``).
+Port of ``msra_practice_project_tpu/ops/pallas/nerf_mlp.py``:
+  K1 ``nerf_mlp_fwd_save``   <- ``_fwd_save_kernel`` (``_fused_forward_save``)
+  K2 ``nerf_mlp_bwd_saved``  <- ``_bwd_saved_kernel`` + ``_grad_body``
+  K3 ``nerf_mlp_fwd``        <- ``_fwd_kernel`` (``_fused_forward``)
+  K6 ``nerf_mlp_fwd_pipelined`` <- ``_fwd_kernel_pipelined`` (``pipe=True``)
+  K5 ``nerf_mlp_bwd``        <- ``_bwd_kernel`` + ``_grad_body`` (recompute)
+  K4 ``nerf_mlp_dx``         <- ``_grad_body``'s ``need_dx`` block
 The CUDA kernels are ``csrc/nerf_mlp.cu``; the source notes there give the
 bound on an H100 and the design.
 
@@ -18,12 +21,15 @@ Shapes (points padded to a multiple of ``ROW_MULT``, zero rows):
   x ``[N, 8]`` = pos(3), dir(3), pad(2);  out ``[N, 8]`` = rgb(3), sigma(1),
   zeros;  acts ``[N, 2560]`` in ``ACT_SLOTS`` order;  weights in
   ``PACK_KEYS`` order with the padded ``[in, out]`` shapes of
-  ``pack_nerf_params``.
+  ``pack_nerf_params``;  the deltas K4 reads are ``(dh9, dh5, dh0)``,
+  ``[N, 128]``, ``[N, 256]``, ``[N, 256]``, stored as the delta chain stores
+  them (bf16 when ``bf16``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +96,10 @@ PACK_SHAPES = {
 GRAD_OFFS, GRAD_TOTAL = _offsets(
     [(k, PACK_SHAPES[k][0] * PACK_SHAPES[k][1]) for k in PACK_KEYS])
 
+# K5's copy of the deltas K4 reads (the layers whose input is a PE)
+PE_DELTA_SLOTS = [("dh9", RGB_HID), ("dh5", HID), ("dh0", HID)]
+PE_DELTA_OFFS, PE_DELTA_W = _offsets(PE_DELTA_SLOTS)    # PE_DELTA_W = 640
+
 
 # ---------------------------------------------------------------------------
 # Packing (differentiable, so autograd unpacks the packed gradients)
@@ -153,9 +163,9 @@ def _pe(x):
             F.pad(pe_d, (0, PE_DIR - pe_d.shape[1])))
 
 
-def nerf_mlp_fwd_save_plain(x: torch.Tensor, w: list, bf16: bool):
-    """Plain version of K1: (out ``[N, 8]`` fp32, acts ``[N, 2560]``, bf16
-    when ``bf16`` else fp32)."""
+def _forward_plain(x: torch.Tensor, w: list, bf16: bool):
+    """The forward of K1/K3/K5: (out ``[N, 8]`` fp32, the activations by
+    ``ACT_SLOTS`` name, fp32 tensors rounded to bf16 when ``bf16``)."""
     w = dict(zip(PACK_KEYS, (t.float() for t in w)))
     st = (lambda a: _round(a, bf16))
     relu = torch.relu
@@ -176,19 +186,30 @@ def nerf_mlp_fwd_save_plain(x: torch.Tensor, w: list, bf16: bool):
     rgb = torch.sigmoid(_mm(a["h9"], w["Wr"], bf16) + w["br"])
     out = torch.cat([rgb[:, :3], sig[:, :1],
                      rgb.new_zeros(rgb.shape[0], OUT_PAD - 4)], dim=1)
+    return out, a
+
+
+def nerf_mlp_fwd_plain(x: torch.Tensor, w: list, bf16: bool) -> torch.Tensor:
+    """Plain version of K3 and of K6 (bitwise equal to K3 by contract): out
+    ``[N, 8]`` fp32."""
+    return _forward_plain(x, w, bf16)[0]
+
+
+def nerf_mlp_fwd_save_plain(x: torch.Tensor, w: list, bf16: bool):
+    """Plain version of K1: (out ``[N, 8]`` fp32, acts ``[N, 2560]``, bf16
+    when ``bf16`` else fp32)."""
+    out, a = _forward_plain(x, w, bf16)
     dt = torch.bfloat16 if bf16 else torch.float32
     acts = torch.cat([a[name] for name, _ in ACT_SLOTS], dim=1)
     acts = F.pad(acts, (0, ACT_PAD - ACT_W)).to(dt)
     return out, acts
 
 
-def nerf_mlp_bwd_saved_plain(w: list, dy: torch.Tensor, acts: torch.Tensor,
-                             bf16: bool) -> list:
-    """Plain version of K2 (``_grad_body`` with ``need_dx=False``): the 26
-    parameter gradients, fp32, in ``PACK_KEYS`` order and packed shapes."""
+def _delta_chain_plain(w: list, dy: torch.Tensor, a: dict, bf16: bool):
+    """``_grad_body`` with ``need_dx=False`` from the activations ``a``: (the
+    26 parameter gradients, fp32, in ``PACK_KEYS`` order and packed shapes;
+    the deltas ``(dh9, dh5, dh0)`` as the kernels store them)."""
     w = dict(zip(PACK_KEYS, (t.float() for t in w)))
-    acts = acts.float()
-    a = {name: acts[:, o0:o1] for name, (o0, o1) in ACT_OFFS.items()}
     g = {}
 
     def mmT(act, delta):  # act^T @ delta
@@ -232,7 +253,46 @@ def nerf_mlp_bwd_saved_plain(w: list, dy: torch.Tensor, acts: torch.Tensor,
         acc(f"W{i}", f"b{i}", a[f"h{i - 1}"], dh)
         dh = mmB(dh, w[f"W{i}"]) * mask(a[f"h{i - 1}"])
     acc("W0", "b0", a["pe_p"], dh)
-    return [g[k] for k in PACK_KEYS]
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return [g[k] for k in PACK_KEYS], tuple(t.to(dt) for t in (dh9, dh5, dh))
+
+
+def nerf_mlp_bwd_saved_plain(w: list, dy: torch.Tensor, acts: torch.Tensor,
+                             bf16: bool):
+    """Plain version of K2: (the 26 parameter gradients, the deltas
+    ``(dh9, dh5, dh0)``) from the saved activations."""
+    acts = acts.float()
+    a = {name: acts[:, o0:o1] for name, (o0, o1) in ACT_OFFS.items()}
+    return _delta_chain_plain(w, dy, a, bf16)
+
+
+def nerf_mlp_bwd_plain(x: torch.Tensor, w: list, dy: torch.Tensor,
+                       bf16: bool, need_dx: bool = True):
+    """Plain version of K5: K1's forward recomputed, then K2's delta chain:
+    (the 26 parameter gradients, the deltas ``(dh9, dh5, dh0)`` when
+    ``need_dx`` else None)."""
+    grads, dh = _delta_chain_plain(w, dy, _forward_plain(x, w, bf16)[1],
+                                   bf16)
+    return grads, (dh if need_dx else None)
+
+
+def nerf_mlp_dx_plain(x: torch.Tensor, w: list, dh, bf16: bool):
+    """Plain version of K4: dx ``[N, 8]`` fp32 from x and the deltas
+    ``(dh9, dh5, dh0)``: ``dpe_p = dh5 W5a^T + dh0 W0^T``, ``dpe_d = dh9
+    W9b^T``, then the chain rule through the PE in fp32."""
+    w = dict(zip(PACK_KEYS, (t.float() for t in w)))
+    dh9, dh5, dh0 = (t.float() for t in dh)
+    dpe_p = _mm(dh5, w["W5a"].t(), bf16) + _mm(dh0, w["W0"].t(), bf16)
+    dpe_d = _mm(dh9, w["W9b"].t(), bf16)
+    x = x.float()
+    dx = torch.zeros_like(x)
+    for dpe, lo, n_freq in ((dpe_p, 0, 10), (dpe_d, 3, 4)):
+        d = dpe[:, :6 * n_freq].reshape(-1, n_freq, 2, 3)  # [sin_f | cos_f]
+        scale = 2.0 ** torch.arange(n_freq, dtype=x.dtype, device=x.device)
+        arg = x[:, None, lo:lo + 3] * scale[:, None]
+        d_arg = d[:, :, 0] * torch.cos(arg) - d[:, :, 1] * torch.sin(arg)
+        dx[:, lo:lo + 3] = (d_arg * scale[:, None]).sum(dim=1)
+    return dx
 
 
 # ---------------------------------------------------------------------------
@@ -246,12 +306,17 @@ def _lib():
     lib = load("nerf_mlp")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_fwd_save.argtypes = [p, ctypes.POINTER(p), p, p, i, i, p]
-        lib.nerf_mlp_fwd_save.restype = i
-        lib.nerf_mlp_bwd_saved.argtypes = [
-            ctypes.POINTER(p), p, p, p, p, p, i, i,
-            ctypes.POINTER(ctypes.c_int), i, i, p]
-        lib.nerf_mlp_bwd_saved.restype = i
+        pp, ip = ctypes.POINTER(p), ctypes.POINTER(ctypes.c_int)
+        lib.nerf_mlp_fwd_save.argtypes = [p, pp, p, p, i, i, p]
+        lib.nerf_mlp_fwd.argtypes = [p, pp, p, i, i, i, p]
+        lib.nerf_mlp_bwd_saved.argtypes = [pp, p, p, p, p, p, i, i, ip, i, i,
+                                           p]
+        lib.nerf_mlp_bwd.argtypes = [p, pp, p, p, p, i, p, p, p, i, i, ip, i,
+                                     i, p]
+        lib.nerf_mlp_dx.argtypes = [p, pp, p, p, p, i, p, i, i, p]
+        for fn in (lib.nerf_mlp_fwd_save, lib.nerf_mlp_fwd,
+                   lib.nerf_mlp_bwd_saved, lib.nerf_mlp_bwd, lib.nerf_mlp_dx):
+            fn.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -266,6 +331,17 @@ def _check(t, name, shape, dtype, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_rows(t, name, width) -> int:
+    """Validates a CUDA fp32 ``[N, width]`` tensor of points; returns N."""
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    n = t.shape[0]
+    if n % ROW_MULT:
+        raise ValueError(f"point count {n} is not a multiple of {ROW_MULT}")
+    _check(t, name, (n, width), torch.float32, t.device)
+    return n
 
 
 def _check_weights(w, bf16, device):
@@ -289,27 +365,25 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _raise_on(err, name):
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
 def nerf_mlp_fwd_save(x: torch.Tensor, w: list, bf16: bool = True):
     """K1: (out ``[N, 8]`` fp32, acts ``[N, 2560]``).  CPU tensors take the
     plain version; CUDA tensors launch ``csrc/nerf_mlp.cu``."""
     if x.device.type == "cpu":
         return nerf_mlp_fwd_save_plain(x, w, bf16)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    n = x.shape[0]
-    if n % ROW_MULT:
-        raise ValueError(f"point count {n} is not a multiple of {ROW_MULT}")
-    _check(x, "x", (n, IN_PAD), torch.float32, x.device)
+    n = _check_rows(x, "x", IN_PAD)
     wp = _check_weights(w, bf16, x.device)
     out = torch.empty((n, OUT_PAD), dtype=torch.float32, device=x.device)
     acts = torch.empty((n, ACT_PAD), device=x.device,
                        dtype=torch.bfloat16 if bf16 else torch.float32)
     with torch.cuda.device(x.device):
-        err = _lib().nerf_mlp_fwd_save(
+        _raise_on(_lib().nerf_mlp_fwd_save(
             x.data_ptr(), wp, out.data_ptr(), acts.data_ptr(), n, int(bf16),
-            _stream(x.device))
-    if err:
-        raise RuntimeError(f"nerf_mlp_fwd_save launch failed: CUDA error {err}")
+            _stream(x.device)), "nerf_mlp_fwd_save")
     nerf_mlp_fwd_save.launches += 1
     return out, acts
 
@@ -317,10 +391,51 @@ def nerf_mlp_fwd_save(x: torch.Tensor, w: list, bf16: bool = True):
 nerf_mlp_fwd_save.launches = 0
 
 
+def _launch_fwd(x: torch.Tensor, w: list, bf16: bool, pipe: bool,
+                name: str) -> torch.Tensor:
+    """Launches K3, or K6 with ``pipe``, on CUDA tensors: out ``[N, 8]``."""
+    n = _check_rows(x, "x", IN_PAD)
+    wp = _check_weights(w, bf16, x.device)
+    out = torch.empty((n, OUT_PAD), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _raise_on(_lib().nerf_mlp_fwd(
+            x.data_ptr(), wp, out.data_ptr(), n, int(pipe), int(bf16),
+            _stream(x.device)), name)
+    return out
+
+
+def nerf_mlp_fwd(x: torch.Tensor, w: list, bf16: bool = True) -> torch.Tensor:
+    """K3: out ``[N, 8]`` fp32, no activations kept.  CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/nerf_mlp.cu``."""
+    if x.device.type == "cpu":
+        return nerf_mlp_fwd_plain(x, w, bf16)
+    out = _launch_fwd(x, w, bf16, False, "nerf_mlp_fwd")
+    nerf_mlp_fwd.launches += 1
+    return out
+
+
+nerf_mlp_fwd.launches = 0
+
+
+def nerf_mlp_fwd_pipelined(x: torch.Tensor, w: list,
+                           bf16: bool = True) -> torch.Tensor:
+    """K6 (``_fused_forward``'s ``pipe=True``): K3's forward run by two
+    staggered warpgroups, bitwise equal to K3.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/nerf_mlp.cu``."""
+    if x.device.type == "cpu":
+        return nerf_mlp_fwd_plain(x, w, bf16)
+    out = _launch_fwd(x, w, bf16, True, "nerf_mlp_fwd_pipelined")
+    nerf_mlp_fwd_pipelined.launches += 1
+    return out
+
+
+nerf_mlp_fwd_pipelined.launches = 0
+
+
 def grad_tasks() -> list:
-    """K2's dW/db task table, one row per packed parameter:
-    (act column or -1 for a column of ones, rows M, delta column, cols N,
-    offset in the flat gradient buffer)."""
+    """The dW/db task table of K2's and K5's split-K pass, one row per
+    packed parameter: (act column or -1 for a column of ones, rows M, delta
+    column, cols N, offset in the flat gradient buffer)."""
     rows = []
     for k in PACK_KEYS:
         act, delta = GRAD_PAIRS[k]
@@ -333,28 +448,65 @@ def grad_tasks() -> list:
 
 
 _TASKS = [v for row in grad_tasks() for v in row]
+DW_PK = 32               # points per chunk of tile_mm.cuh's split-K pass
+SCRATCH_BYTES = 2 ** 31  # K5's workspaces
+
+
+def macs_per_point() -> dict:
+    """Multiply-adds per point of each kernel's work (unpadded layers): the
+    forward ("fwd": K1, K3, K6), K2's delta chain and dW ("bwd_saved"), K5's
+    recomputed forward and K2's work ("bwd"), and K4's products ("dx")."""
+    layers = [(60, 256)] + [(256, 256)] * 4 + [(316, 256)] + [(256, 256)] * 2 \
+        + [(256, 1), (256, 256), (280, 128), (128, 3)]
+    fwd = sum(i * o for i, o in layers)
+    # dW for every layer (the forward's MACs again), delta @ W^T for every
+    # layer whose input is an activation (not a PE), and the two heads
+    # rebuilt from h7/h9
+    chain = (4 * 256 * 256 + 256 * 256 + 2 * 256 * 256 + 256 * 1
+             + 256 * 256 + 256 * 128 + 128 * 3)
+    saved = fwd + chain + 256 + 128 * 3
+    return {"fwd": fwd, "bwd_saved": saved, "bwd": fwd + saved,
+            "dx": 2 * 60 * HID + 24 * RGB_HID}
 
 
 def bwd_splits(n: int) -> int:
-    """Point ranges K2's dW pass splits the points into."""
+    """Point ranges the split-K dW pass splits the points into."""
     return max(1, min(16, n // 4096))
 
 
+def chunk_rows(n: int, bf16: bool) -> int:
+    """Points per pass of K5: whole splits of the split-K pass over all n
+    points (as ``tile_mm.cuh``'s ``chunks_per_split`` cuts them) and a
+    multiple of ``ROW_MULT``, its workspaces within ``SCRATCH_BYTES`` (or
+    one split when a split alone is larger)."""
+    splits = bwd_splits(n)
+    per_split = -(-(n // DW_PK) // splits) * DW_PK
+    unit = math.lcm(per_split, ROW_MULT)
+    per_pt = (ACT_PAD + DELTA_W) * (2 if bf16 else 4)
+    return min(n, max(unit, SCRATCH_BYTES // per_pt // unit * unit))
+
+
+def _split_grads(dw):
+    return [dw[GRAD_OFFS[k][0]:GRAD_OFFS[k][1]].view(PACK_SHAPES[k])
+            for k in PACK_KEYS]
+
+
+def _pe_deltas(deltas, offs):
+    return tuple(deltas[:, offs[k][0]:offs[k][1]]
+                 for k in ("dh9", "dh5", "dh0"))
+
+
 def nerf_mlp_bwd_saved(w: list, dy: torch.Tensor, acts: torch.Tensor,
-                       bf16: bool = True) -> list:
-    """K2: the 26 parameter gradients (fp32, packed shapes, ``PACK_KEYS``
-    order) from the saved activations, no input gradient.  CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/nerf_mlp.cu`` (deltas,
-    split dW partials, fixed-order sum: bitwise reproducible)."""
+                       bf16: bool = True):
+    """K2: (the 26 parameter gradients, fp32, packed shapes, ``PACK_KEYS``
+    order; the deltas ``(dh9, dh5, dh0)``, views of its workspace) from the
+    saved activations.  CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/nerf_mlp.cu`` (deltas, split dW partials, fixed-order sum:
+    bitwise reproducible)."""
     if dy.device.type == "cpu":
         return nerf_mlp_bwd_saved_plain(w, dy, acts, bf16)
-    if dy.device.type != "cuda":
-        raise ValueError(f"unsupported device {dy.device}")
-    n = dy.shape[0]
-    if n % ROW_MULT:
-        raise ValueError(f"point count {n} is not a multiple of {ROW_MULT}")
+    n = _check_rows(dy, "dy", OUT_PAD)
     dev = dy.device
-    _check(dy, "dy", (n, OUT_PAD), torch.float32, dev)
     act_dt = torch.bfloat16 if bf16 else torch.float32
     _check(acts, "acts", (n, ACT_PAD), act_dt, dev)
     wp = _check_weights(w, bf16, dev)
@@ -365,21 +517,85 @@ def nerf_mlp_bwd_saved(w: list, dy: torch.Tensor, acts: torch.Tensor,
     dw = torch.empty(GRAD_TOTAL, dtype=torch.float32, device=dev)
     tasks = (ctypes.c_int * len(_TASKS))(*_TASKS)
     with torch.cuda.device(dev):
-        err = _lib().nerf_mlp_bwd_saved(
+        _raise_on(_lib().nerf_mlp_bwd_saved(
             wp, dy.data_ptr(), acts.data_ptr(), deltas.data_ptr(),
             partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
-            len(PACK_KEYS), int(bf16), _stream(dev))
-    if err:
-        raise RuntimeError(
-            f"nerf_mlp_bwd_saved launch failed: CUDA error {err}")
+            len(PACK_KEYS), int(bf16), _stream(dev)), "nerf_mlp_bwd_saved")
     nerf_mlp_bwd_saved.launches += 1
-    return [dw[GRAD_OFFS[k][0]:GRAD_OFFS[k][1]].view(PACK_SHAPES[k])
-            for k in PACK_KEYS]
+    return _split_grads(dw), _pe_deltas(deltas, DELTA_OFFS)
 
 
 nerf_mlp_bwd_saved.launches = 0
 
-KERNELS = (nerf_mlp_fwd_save, nerf_mlp_bwd_saved)
+
+def nerf_mlp_bwd(x: torch.Tensor, w: list, dy: torch.Tensor,
+                 bf16: bool = True, need_dx: bool = True):
+    """K5, the backward that recomputes the forward: (the 26 parameter
+    gradients as K2 returns them; the deltas ``(dh9, dh5, dh0)`` when
+    ``need_dx`` else None).  CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/nerf_mlp.cu`` over chunks of ``chunk_rows``
+    points: dW/db bitwise equal to K1 then K2 on the same inputs."""
+    if x.device.type == "cpu":
+        return nerf_mlp_bwd_plain(x, w, dy, bf16, need_dx)
+    n = _check_rows(x, "x", IN_PAD)
+    dev = x.device
+    _check(dy, "dy", (n, OUT_PAD), torch.float32, dev)
+    wp = _check_weights(w, bf16, dev)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    splits, rows = bwd_splits(n), chunk_rows(n, bf16)
+    acts = torch.empty((rows, ACT_PAD), dtype=dt, device=dev)
+    deltas = torch.empty((rows, DELTA_W), dtype=dt, device=dev)
+    pe = (torch.empty((n, PE_DELTA_W), dtype=dt, device=dev) if need_dx
+          else None)
+    partials = torch.empty((splits, GRAD_TOTAL), dtype=torch.float32,
+                           device=dev)
+    dw = torch.empty(GRAD_TOTAL, dtype=torch.float32, device=dev)
+    tasks = (ctypes.c_int * len(_TASKS))(*_TASKS)
+    with torch.cuda.device(dev):
+        _raise_on(_lib().nerf_mlp_bwd(
+            x.data_ptr(), wp, dy.data_ptr(), acts.data_ptr(),
+            deltas.data_ptr(), rows, pe.data_ptr() if need_dx else None,
+            partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
+            len(PACK_KEYS), int(bf16), _stream(dev)), "nerf_mlp_bwd")
+    nerf_mlp_bwd.launches += 1
+    return _split_grads(dw), (_pe_deltas(pe, PE_DELTA_OFFS) if need_dx
+                              else None)
+
+
+nerf_mlp_bwd.launches = 0
+
+
+def nerf_mlp_dx(x: torch.Tensor, w: list, dh, bf16: bool = True):
+    """K4: dx ``[N, 8]`` fp32 from x and the deltas ``(dh9, dh5, dh0)`` that
+    K2 or K5 returned (column views sharing one row stride, 16-byte aligned
+    rows).  CPU tensors
+    take the plain version; CUDA tensors launch ``csrc/nerf_mlp.cu``."""
+    if x.device.type == "cpu":
+        return nerf_mlp_dx_plain(x, w, dh, bf16)
+    n = _check_rows(x, "x", IN_PAD)
+    wp = _check_weights(w, bf16, x.device)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    ld = dh[0].stride(0)
+    for t, (name, width) in zip(dh, PE_DELTA_SLOTS):
+        if (t.device != x.device or t.dtype != dt
+                or tuple(t.shape) != (n, width) or t.stride() != (ld, 1)
+                or (t.data_ptr() | ld * t.element_size()) % 16):
+            raise ValueError(f"{name} must be a {dt} [{n}, {width}] view on "
+                             f"{x.device} with row stride {ld}, its rows "
+                             "16-byte aligned")
+    dx = torch.empty((n, IN_PAD), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _raise_on(_lib().nerf_mlp_dx(
+            x.data_ptr(), wp, *(t.data_ptr() for t in dh), ld, dx.data_ptr(),
+            n, int(bf16), _stream(x.device)), "nerf_mlp_dx")
+    nerf_mlp_dx.launches += 1
+    return dx
+
+
+nerf_mlp_dx.launches = 0
+
+KERNELS = (nerf_mlp_fwd_save, nerf_mlp_bwd_saved, nerf_mlp_fwd,
+           nerf_mlp_fwd_pipelined, nerf_mlp_bwd, nerf_mlp_dx)
 
 
 def reset_launch_counts() -> None:
@@ -388,36 +604,63 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Autograd: the custom VJP of fused_nerf_apply (save_acts=True, need_dx=False)
+# Autograd: the custom VJP of fused_nerf_apply
 # ---------------------------------------------------------------------------
 
 
 class _FusedNeRFMLP(torch.autograd.Function):
+    """Forward K1 (``save_acts``: the activations are the residuals) or K3
+    (the residuals are x and the weights); backward K2 or K5, then K4 when
+    ``need_dx`` (else zeros for x), as the JAX ``_fwd_rule``/``_bwd_rule``."""
+
     @staticmethod
-    def forward(ctx, x_pad, bf16, *packed):
+    def forward(ctx, x_pad, bf16, need_dx, save_acts, *packed):
         w = kernel_weights(packed, bf16)
-        out, acts = nerf_mlp_fwd_save(x_pad, w, bf16)
-        ctx.bf16 = bf16
-        ctx.save_for_backward(acts, *w)
+        ctx.bf16, ctx.need_dx, ctx.save_acts = bf16, need_dx, save_acts
+        if save_acts:
+            out, acts = nerf_mlp_fwd_save(x_pad, w, bf16)
+            ctx.save_for_backward(x_pad, acts, *w)
+        else:
+            out = nerf_mlp_fwd(x_pad, w, bf16)
+            ctx.save_for_backward(x_pad, *w)
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        acts, *w = ctx.saved_tensors
-        grads = nerf_mlp_bwd_saved(w, dy.contiguous(), acts, ctx.bf16)
-        return (None, None, *grads)
+        x_pad, *w = ctx.saved_tensors
+        dy = dy.contiguous()
+        if ctx.save_acts:
+            acts, *w = w
+            grads, dh = nerf_mlp_bwd_saved(w, dy, acts, ctx.bf16)
+        else:
+            grads, dh = nerf_mlp_bwd(x_pad, w, dy, ctx.bf16, ctx.need_dx)
+        if ctx.need_dx:
+            dx = nerf_mlp_dx(x_pad, w, dh, ctx.bf16)
+        else:
+            dx = torch.zeros_like(x_pad) if ctx.needs_input_grad[0] else None
+        return (dx, None, None, None, *grads)
 
 
-def fused_nerf_apply(model, x: torch.Tensor, bf16: bool = True):
-    """``model(x)`` through K1 (forward) and K2 (backward): x ``[..., 6]`` ->
-    ``[..., 4]``, differentiable in the model's parameters only.  The input
-    gradient (K4) is not ported, so ``x`` must not require grad."""
-    if x.requires_grad:
-        raise NotImplementedError(
-            "fused_nerf_apply has no input gradient (need_dx=True is not "
-            "ported); detach x")
+def fused_nerf_apply(model, x: torch.Tensor, bf16: bool = True,
+                     need_dx: bool = True, save_acts: bool = False):
+    """``model(x)`` through the fused kernels (the JAX ``fused_nerf_apply``
+    without ``interpret``): x ``[..., 6]`` -> ``[..., 4]``, differentiable
+    in the model's parameters and in x.
+
+    When autograd records (grad enabled and x or a parameter requires grad)
+    the forward is K1 with ``save_acts`` (activations spilled for K2), else
+    K3 (K5 recomputes them); the backward is K2 or K5, then K4 for x's
+    gradient when ``need_dx``.  ``need_dx=False`` returns zeros for x's
+    gradient: only for callers whose x carries no gradient (the train step:
+    points built from ray data and detached depths).  When autograd does not
+    record, the forward is K3 alone."""
     packed = pack_nerf_params(model)
+    tensors = [packed[k] for k in PACK_KEYS]
     x_pad = pad_points(x.float())
-    out = _FusedNeRFMLP.apply(x_pad, bf16, *(packed[k] for k in PACK_KEYS))
+    if torch.is_grad_enabled() and (
+            x_pad.requires_grad or any(t.requires_grad for t in tensors)):
+        out = _FusedNeRFMLP.apply(x_pad, bf16, need_dx, save_acts, *tensors)
+    else:
+        out = nerf_mlp_fwd(x_pad, kernel_weights(tensors, bf16), bf16)
     n = x.numel() // x.shape[-1]
     return out[:n, :4].reshape(*x.shape[:-1], 4)

@@ -111,8 +111,13 @@ def make_train_step(coarse_model, fine_model, opt, cfg, device):
             raise NotImplementedError(
                 "on CUDA the NeRF MLP runs only through the fused kernels: "
                 "use_fused_mlp=False and use_siren=True are not supported")
-        apply_c = lambda x: fused_nerf_apply(coarse_model, x, True)  # noqa
-        apply_f = lambda x: fused_nerf_apply(fine_model, x, True)    # noqa
+        # need_dx=False: the points come from ray data and detached depths;
+        # save_acts=True: K1 spills the activations so K2 skips the
+        # recompute, as the JAX trainer passes them.
+        apply_c = lambda x: fused_nerf_apply(  # noqa: E731
+            coarse_model, x, True, need_dx=False, save_acts=True)
+        apply_f = lambda x: fused_nerf_apply(  # noqa: E731
+            fine_model, x, True, need_dx=False, save_acts=True)
     else:
         apply_c, apply_f = coarse_model, fine_model
     if not use_fine:

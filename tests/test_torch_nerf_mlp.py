@@ -138,7 +138,8 @@ def _jax_grads(p, x, dy, bf16):
 
 def _port_grads(m, x, dy, bf16):
     m.zero_grad()
-    out = K.fused_nerf_apply(m, torch.from_numpy(x), bf16)
+    out = K.fused_nerf_apply(m, torch.from_numpy(x), bf16, need_dx=False,
+                             save_acts=True)
     (out * torch.from_numpy(dy)).sum().backward()
     g = {k: t.grad.clone() for k, t in m.named_parameters()}
     return out.detach().numpy(), params_from_state_dict(
@@ -206,19 +207,28 @@ def test_cpu_wrappers_take_the_plain_version_and_count_no_launch(shared):
     _, m = shared
     K.reset_launch_counts()
     x = torch.from_numpy(_points(130, 8))
-    out = K.fused_nerf_apply(m, x, True)
+    out = K.fused_nerf_apply(m, x, True, need_dx=False, save_acts=True)
     out.sum().backward()
     assert out.shape == (130, 4)
-    assert K.nerf_mlp_fwd_save.launches == 0
-    assert K.nerf_mlp_bwd_saved.launches == 0
+    assert all(k.launches == 0 for k in K.KERNELS)
     assert K.pad_points(x).shape == (256, 8)
 
 
-def test_fused_apply_refuses_input_gradient(shared):
-    _, m = shared
-    x = torch.from_numpy(_points(16, 9)).requires_grad_()
-    with pytest.raises(NotImplementedError):
-        K.fused_nerf_apply(m, x)
+def test_fused_apply_input_gradient_matches_jax(shared):
+    """x's gradient at the default flags (recompute backward, need_dx) against
+    the JAX kernel's in interpret mode, fp32."""
+    p, m = shared
+    x = _points(16, 9)
+    dy = np.random.default_rng(10).normal(size=(16, 4)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: JK.fused_nerf_apply(p, x, False, True),
+                     jnp.asarray(x))
+    ref = np.asarray(vjp(jnp.asarray(dy))[0])
+    xt = torch.from_numpy(x).requires_grad_()
+    (K.fused_nerf_apply(m, xt, False) * torch.from_numpy(dy)).sum().backward()
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    np.testing.assert_allclose(xt.grad.numpy() / scale, ref / scale,
+                               atol=1e-4)
 
 
 def test_wrapper_checks_shapes_before_launch(shared):

@@ -218,16 +218,19 @@ def test_render_image_edge_padding_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (and chip_smoke.py) loads no JAX
-    and no module of msra_practice_project_tpu.  Exact names: the JAX
-    package's name is a prefix of the port's."""
+    """Importing every module of the port (and chip_smoke.py and
+    tools/torch_roofline_nerf.py) loads no JAX and no module of
+    msra_practice_project_tpu.  Exact names: the JAX package's name is a
+    prefix of the port's."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import msra_practice_project_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
+spec = importlib.util.spec_from_file_location("tool", "tools/torch_roofline_nerf.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "optax", "flax", "msra_practice_project_tpu")
        or m.startswith(("jax.", "jaxlib.", "optax.", "flax.",
