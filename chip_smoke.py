@@ -5,6 +5,14 @@ one NVIDIA GPU.
 Phases; any failure exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the sources
      in this checkout, one nvcc per source, all started together;
+The split-K dW pass that K2, K5 and K7 share (csrc/tile_mm.cuh):
+  1b. hold it, launched alone, against its plain version: one CTA first
+     (a 64 x 256 product over 64 points against torch.mm in fp32), then
+     K2's task table at 65,536 and 196,608 points and K7's at 64 images of
+     8,192 points, bf16 operands from a seed: dW/db within 5e-2 relative
+     Frobenius norm per task (K2's gate), bitwise repeats, and the partials
+     of a pass over the first half of the splits alone bitwise equal to the
+     whole pass's;
 NeRF (K1, K2):
   2. hold K1 and K2 against their plain PyTorch versions at the coarse- and
      fine-pass shapes (65,536 and 196,608 points), in fp32 and in bf16, and
@@ -49,7 +57,13 @@ pi-GAN (K7, K8):
   13. both modes again for 6 iterations with torch.profiler on for the last
      3: busy, idle share and the time by kernel;
   14. K8 and K7 per launch at both shapes beside the plain version and the
-     least time the card could take.
+     least time the card could take;
+  15. the split-K pass per launch at K2's two shapes and K7's coarse one,
+     beside its plain version, the least time the card could take and a
+     yardstick the port never calls: cuBLAS, one torch.mm (or column sum)
+     per task.
+The split-K pass's launches are counted over every path: 2 per NeRF step
+(K2's), 1 per K5 chunk, 1 per K7 chunk.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 
@@ -303,6 +317,7 @@ def check_bwd(torch, K, n):
 # 8 + 16 fine samples per ray
 FILM_B, FILM_COARSE_P, FILM_FINE_P = 64, 32 * 32 * 8, 32 * 32 * 24
 FILM_SLICE = 16   # images per slice of the plain versions on the card
+FILM_ROWS = FILM_B * FILM_COARSE_P   # K7's rows at the coarse shape
 
 
 def film_inputs(torch, FK, n_img, n_pts, seed=0):
@@ -413,6 +428,115 @@ def check_film(torch, FK, n_img, n_pts):
 # tensor; bf16 relative Frobenius norm per tensor.
 FILM_GATES = {False: {"fwd": 1e-4, "bwd": 1e-3},
               True: {"fwd": 2e-2, "bwd": 5e-2}}
+
+
+def dw_operands(torch, table, n, seed=0):
+    """(tasks, acts, deltas, splits) for the split-K pass over n points of
+    K2's ("nerf") or K7's ("film") task table: bf16 operands from a seeded
+    normal generator on the card, the wrappers' split counts."""
+    from msra_practice_project_tpu_torch.ops.kernels import film_mlp as FK
+    from msra_practice_project_tpu_torch.ops.kernels import nerf_mlp as K
+
+    mod, act_w = (K, K.ACT_PAD) if table == "nerf" else (FK, FK.ACT_W)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    acts = torch.randn(n, act_w, device="cuda", generator=g).bfloat16()
+    deltas = torch.randn(n, mod.DELTA_W, device="cuda",
+                         generator=g).bfloat16()
+    return mod.grad_tasks(), acts, deltas, mod.bwd_splits(n)
+
+
+DW_SHAPES = (("nerf", COARSE_N), ("nerf", FINE_N), ("film", FILM_ROWS))
+
+
+def check_dw(torch, DW):
+    """The split-K pass against its plain version (module docstring, 1b).
+    Returns the largest max |kernel - plain| over the task tables."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(64, 64, device="cuda", generator=g).bfloat16()
+    d = torch.randn(64, 256, device="cuda", generator=g).bfloat16()
+    _, dw = DW.dw_splitk(a, d, [(0, 64, 0, 256, 0)], 1)
+    ref = a.float().t() @ d.float()
+    torch.cuda.synchronize()
+    err = rel_frob(dw.view(64, 256), ref)
+    max_abs = float((dw.view(64, 256) - ref).abs().max())
+    print(f"  one CTA, 64 x 256 over 64 points vs torch.mm (fp32): rel frob "
+          f"{err:.3e}, max|err| {max_abs:.3e} -> "
+          f"{'ok' if err <= 5e-2 else 'FAIL'}", flush=True)
+    if not err <= 5e-2:
+        raise SystemExit("the split-K pass fails on one CTA")
+    worst_abs = 0.0
+    for table, n in DW_SHAPES:
+        tasks, acts, deltas, splits = dw_operands(torch, table, n)
+        part, dw = DW.dw_splitk(acts, deltas, tasks, splits)
+        part2, dw2 = DW.dw_splitk(acts, deltas, tasks, splits)
+        half = splits // 2
+        rows = DW.chunks_per_split(n, splits) * DW.PK * half
+        part_h, _ = DW.dw_splitk(acts[:rows], deltas[:rows], tasks, half)
+        ref_part, ref = DW.dw_splitk_plain(acts, deltas, tasks, splits)
+        torch.cuda.synchronize()
+        worst, key = -1.0, None
+        for t, (_, m, _, nn, off) in enumerate(tasks):
+            r = rel_frob(dw[off:off + m * nn], ref[off:off + m * nn])
+            if r > worst:
+                worst, key = r, t
+        max_abs = float((dw - ref).abs().max())
+        worst_abs = max(worst_abs, max_abs)
+        bits = {"repeat": torch.equal(part, part2) and torch.equal(dw, dw2),
+                "first half of the splits alone == whole":
+                    torch.equal(part_h, part[:half])}
+        ok = worst <= 5e-2 and all(bits.values())
+        print(f"  {table} tasks, N={n}, {splits} splits: worst rel frob "
+              f"{worst:.3e} (task {key}), max|err| {max_abs:.3e}, partials "
+              f"rel frob {rel_frob(part, ref_part):.3e}; {bits} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit("the split-K pass disagrees with its plain "
+                             "version or breaks a bitwise equality")
+        del acts, deltas, part, part2, part_h, ref_part
+        torch.cuda.synchronize()
+    return worst_abs
+
+
+def dw_bound(tasks, n, act_ld, delta_ld):
+    """(bound ms, bound_by) of one pass over n points: the act and delta
+    columns the tasks use, read once, and dW written once, over HBM's rate,
+    against its MACs over the bf16 tensor-core rate."""
+    def used(cols):
+        return len({c for lo, w in cols for c in range(lo, lo + w)})
+
+    acols = used([(a0, m) for a0, m, _, _, _ in tasks if a0 >= 0])
+    dcols = used([(d0, nn) for _, _, d0, nn, _ in tasks])
+    assert acols <= act_ld and dcols <= delta_ld
+    total = max(off + m * nn for _, m, _, nn, off in tasks)
+    macs = sum(m * nn if a0 >= 0 else nn for a0, m, _, nn, _ in tasks)
+    t_b = (n * (acols + dcols) * 2 + total * 4) / HBM_BYTES_PER_S * 1e3
+    t_o = 2 * macs * n / BF16_FLOP_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def time_dw(torch, DW, table, n, reps):
+    """The split-K pass per launch (bf16) beside its plain version, its
+    bound and the cuBLAS yardstick (one torch.mm per weight task, one
+    column sum per bias task, on the same operands)."""
+    tasks, acts, deltas, splits = dw_operands(torch, table, n, seed=1)
+
+    def library():
+        for a0, m, d0, nn, _ in tasks:
+            d = deltas[:, d0:d0 + nn]
+            if a0 < 0:
+                d.sum(dim=0)
+            else:
+                torch.mm(acts[:, a0:a0 + m].t(), d)
+
+    bound, by = dw_bound(tasks, n, acts.shape[1], deltas.shape[1])
+    res = {"ms": time_ms(torch, lambda: DW.dw_splitk(acts, deltas, tasks,
+                                                     splits), reps),
+           "plain_ms": time_ms(torch, lambda: DW.dw_splitk_plain(
+               acts, deltas, tasks, splits), 5),
+           "library_ms": time_ms(torch, library, reps),
+           "bound_ms": bound, "bound_by": by}
+    del acts, deltas
+    return res
 
 
 def time_ms(torch, fn, reps):
@@ -530,17 +654,26 @@ def run_train(torch, iterations, startup, timed, window=None):
 
 def reset_counts():
     """Every kernel's launch count to 0."""
-    from msra_practice_project_tpu_torch.ops.kernels import film_mlp, nerf_mlp
-    for mod in (nerf_mlp, film_mlp):
+    from msra_practice_project_tpu_torch.ops.kernels import (dw_splitk,
+                                                             film_mlp,
+                                                             nerf_mlp)
+    for mod in (nerf_mlp, film_mlp, dw_splitk):
         mod.reset_launch_counts()
+
+
+def dw_launches():
+    from msra_practice_project_tpu_torch.ops.kernels import dw_splitk
+    return dw_splitk.dw_splitk.launches
 
 
 def main_path(torch, K, iterations, startup, timed):
     """The main path with every launch counter set to 0 just before it and
-    read just after; K1 and K2 must run twice per step, K3-K6 never."""
+    read just after; K1 and K2 and K2's split-K pass must run twice per
+    step, K3-K6 never."""
     reset_counts()
     ms, batch, log, ckpt, png = run_train(torch, iterations, startup, timed)
     launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches["dw_splitk"] = dw_launches()
     losses = log["loss"]
     rays = batch / (ms / 1e3)
     print(f"  losses first/last {losses[0]:.5f}/{losses[-1]:.5f}, launches "
@@ -549,9 +682,10 @@ def main_path(torch, K, iterations, startup, timed):
           f"ms/step, {rays:,.0f} rays/s", flush=True)
     if not (len(losses) == iterations
             and all(v == v and abs(v) != float("inf") for v in losses)
-            and launches == {k.__name__: 2 * iterations if k in (
-                K.nerf_mlp_fwd_save, K.nerf_mlp_bwd_saved) else 0
-                for k in K.KERNELS}
+            and launches == {
+                **{k.__name__: 2 * iterations if k in (
+                    K.nerf_mlp_fwd_save, K.nerf_mlp_bwd_saved) else 0
+                   for k in K.KERNELS}, "dw_splitk": 2 * iterations}
             and ckpt and png):
         raise SystemExit("main path check failed")
     return launches, ms, rays
@@ -573,12 +707,17 @@ def roofline_path(torch, K, tool):
     read just after.  Fails unless fused_nerf_apply at its defaults
     launched K3 1 time per forward and K3, K5, K4 1 time each per forward +
     backward (K5 and K4 per backward alone), the train step K1 and K2 twice,
-    fwdwall K6, and every time is a positive finite number."""
+    fwdwall K6, the split-K pass once per K2 and once per K5 chunk, and
+    every time is a positive finite number."""
     reset_counts()
     main = tool.run(ROOFLINE_BATCH, "main")
     wall = tool.run(ROOFLINE_BATCH, "fwdwall")
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in K.KERNELS}
+    n = ROOFLINE_BATCH * tool.PTS_PER_RAY
+    launches["dw_splitk"] = dw = dw_launches()
+    want_dw = (launches["nerf_mlp_bwd_saved"]
+               + launches["nerf_mlp_bwd"] * -(-n // K.chunk_rows(n, True)))
     per_call = {**main["launches"],
                 **{f"fwdwall_{k}": v for k, v in wall["launches"].items()}}
     want = {"step": {"nerf_mlp_fwd_save": 2, "nerf_mlp_bwd_saved": 2},
@@ -593,7 +732,7 @@ def roofline_path(torch, K, tool):
     print(f"  launches per call {per_call}; over the path {launches}",
           flush=True)
     if not (all(per_call[k] == v for k, v in want.items())
-            and all(0 < t < float("inf") for t in times)):
+            and dw == want_dw and all(0 < t < float("inf") for t in times)):
         raise SystemExit("roofline path check failed")
     return launches, main, wall
 
@@ -735,6 +874,7 @@ def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
                                     window_end=window_end, window=window)
             torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in FK.KERNELS}
+            launches["dw_splitk"] = dw_launches()
             last = cfg["iterations"][-1]
             log = os.path.join(out_dir, "pigan_smoke")
             ckpt = os.path.exists(os.path.join(log, f"{last:06d}.ckpt"))
@@ -750,8 +890,9 @@ def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
 def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
                files=False):
     """One pi-GAN run; fails unless every loss is finite, each kernel
-    launched `want[name]` times per iteration and, with `files`, the last
-    iteration wrote its checkpoint and its demo grid."""
+    launched `want[name]` times per iteration, the split-K pass at least
+    once per K7 launch (once per chunk of images) and, with `files`, the
+    last iteration wrote its checkpoint and its demo grid."""
     ms, launches, log, ckpt, png = run_pigan(torch, FK, mode, overrides,
                                              timed, window_end)
     n_it = overrides["iterations"][-1]
@@ -759,7 +900,7 @@ def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
     losses = log["d_loss"] + log["g_loss"]
     finite = (len(losses) == 2 * n_it
               and all(v == v and abs(v) != float("inf") for v in losses))
-    per_it = {k: v / n_it for k, v in launches.items()}
+    per_it = {k: v / n_it for k, v in launches.items() if k != "dw_splitk"}
     print(f"  mode {mode}: d_loss first/last {log['d_loss'][0]:.4f}/"
           f"{log['d_loss'][-1]:.4f}, g_loss first/last "
           f"{log['g_loss'][0]:.4f}/{log['g_loss'][-1]:.4f}, finite {finite}, "
@@ -768,7 +909,8 @@ def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
     print(f"  mode {mode}: window of iterations {window_end - timed + 1}-"
           f"{window_end} (CUDA events): {ms:.3f} ms/iteration, "
           f"{batch / (ms / 1e3):.1f} images/s", flush=True)
-    if not (finite and per_it == want and (ckpt and png or not files)):
+    if not (finite and per_it == want and (ckpt and png or not files)
+            and launches["dw_splitk"] >= launches["film_mlp_bwd"]):
         raise SystemExit(f"pi-GAN mode {mode} check failed")
     return ms, launches, ckpt, png
 
@@ -780,6 +922,7 @@ def main() -> int:
         return 2
     try:
         from msra_practice_project_tpu_torch.ops.kernels import build
+        from msra_practice_project_tpu_torch.ops.kernels import dw_splitk as DW
         from msra_practice_project_tpu_torch.ops.kernels import film_mlp as FK
         from msra_practice_project_tpu_torch.ops.kernels import nerf_mlp as K
     except ImportError as e:
@@ -800,6 +943,10 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s, in parallel)", flush=True)
     torch.cuda.synchronize()
     summary, kernels = {}, []
+
+    phase("split-K dW pass (tile_mm.cuh) vs its plain version: one CTA, "
+          "then K2's and K7's task tables")
+    dw_err = check_dw(torch, DW)
 
     errs = {}
     for n in (COARSE_N, FINE_N):
@@ -935,7 +1082,7 @@ def main() -> int:
               flush=True)
         torch.cuda.synchronize()
     src = "msra_practice_project_tpu_torch/ops/kernels/csrc/film_mlp.cu"
-    for name, pre, replaces, launches, path in (
+    for name, pre, replaces, n_launches, path in (
             ("film_mlp_bwd", "bwd",
              "msra_practice_project_tpu/ops/pallas/film_mlp.py:206",
              launches1["film_mlp_bwd"], "train_pigan, test.json, mode 1"),
@@ -943,10 +1090,34 @@ def main() -> int:
              "msra_practice_project_tpu/ops/pallas/film_mlp.py:160",
              launches2["film_mlp_fwd"], "train_pigan, test.json, mode 2")):
         kernels.append(kernel_entry(
-            name, src, replaces, launches, film_errs[name],
+            name, src, replaces, n_launches, film_errs[name],
             by_kernel(ftimes["coarse"], pre), by_kernel(ftimes["fine"], pre),
             f"B={FILM_B} P={FILM_COARSE_P} (coarse pass)",
             f"B={FILM_B} P={FILM_FINE_P}", path))
+
+    phase("split-K dW pass timings (bf16, CUDA events, median)")
+    dtimes = {}
+    for table, n in DW_SHAPES:
+        dtimes[(table, n)] = t = time_dw(torch, DW, table, n, 25)
+        print(f"  {table} tasks N={n}: {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f}, cuBLAS per task {t['library_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f} {t['bound_by']})", flush=True)
+        torch.cuda.synchronize()
+    entry = kernel_entry(
+        "dw_splitk",
+        "msra_practice_project_tpu_torch/ops/kernels/csrc/tile_mm.cuh",
+        "msra_practice_project_tpu/ops/pallas/nerf_mlp.py:528",
+        launches["dw_splitk"], dw_err, dtimes[("nerf", COARSE_N)],
+        dtimes[("nerf", FINE_N)], f"K2's tasks, N={COARSE_N}",
+        f"N={FINE_N}", "train_nerf, lego recipe (inside K2)")
+    entry["film"] = {"shape": f"K7's tasks, B={FILM_B} P={FILM_COARSE_P}",
+                     **dtimes[("film", FILM_ROWS)]}
+    entry["launches_by_path"] = {
+        "nerf_step": launches["dw_splitk"],
+        "roofline": rl_launches["dw_splitk"],
+        "pigan_mode1": launches1["dw_splitk"],
+        "pigan_mode2": launches2["dw_splitk"]}
+    kernels.append(entry)
 
     print(json.dumps(summary))
     print(smi)
@@ -970,8 +1141,8 @@ def kernel_entry(name, src, replaces, launches, err, coarse, fine, shape,
     numbers at the top level, the fine pass's under "fine"."""
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, **coarse,
-        "library_ms": None, "shape": shape, "launched_by": path,
+        "launches": launches, "max_abs_err": err, "library_ms": None,
+        **coarse, "shape": shape, "launched_by": path,
         "fine": {"shape": fine_shape, **fine},
     }
 

@@ -30,6 +30,9 @@ def resolve_device(device=None) -> torch.device:
 
 def set_plain_precision() -> None:
     """Full fp32 for the plain (non-kernel) float32 paths: no TF32 in
-    matmuls or convolutions."""
+    matmuls or convolutions; and deterministic cuDNN convolutions, so that
+    two runs from one seed repeat bitwise (the kernels already do)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

@@ -132,7 +132,7 @@ class FilmSirenNeRF(nn.Module):
     def forward(self, x, film, need_dx: bool = True):
         """``need_dx=False`` lets the kernels skip the input gradient (zeros
         are returned for it): only when x carries no gradient."""
-        mode = self._fused_mode()
+        mode = self._fused_mode(x.device)
         if mode and not self._kernel_batched(x, film):
             mode = 0
         if mode == 2:
@@ -142,17 +142,21 @@ class FilmSirenNeRF(nn.Module):
             return film_trunk_hybrid(self, x, film, need_dx)
         return self._apply_plain(x, film)
 
-    def _fused_mode(self) -> int:
+    def _fused_mode(self, device) -> int:
         """Trunk dispatch for the standard shape, read from
         ``MSRA_TPU_FUSED_FILM`` as the JAX package reads it: 0 = plain, 1 =
-        hybrid (plain forward, K7 backward in bf16; the default), 2 = K8
-        forward and K7 backward.  The kernels run on CUDA tensors and their
-        plain versions on CPU tensors."""
+        hybrid (plain forward, K7 backward in bf16), 2 = K8 forward and K7
+        backward.  Unset, it is 1 for CUDA tensors and 0 for any other, as
+        the JAX package takes 0 off the TPU; a value that is set wins on
+        either device.  The kernels run on CUDA tensors and their plain
+        versions on CPU tensors."""
         cfg = self.cfg
         if not (cfg.hidden_dim == 256 and cfg.hidden_layers == 8
                 and cfg.w0 == 30.0):
             return 0
-        raw = os.environ.get("MSRA_TPU_FUSED_FILM", "1")
+        raw = os.environ.get("MSRA_TPU_FUSED_FILM")
+        if raw is None:
+            return 1 if torch.device(device).type == "cuda" else 0
         try:
             mode = int(raw)
         except ValueError:

@@ -48,9 +48,11 @@
 //      (a) per tile of points: rebuild the sigma/rgb heads from the saved
 //          h7/h9, run the dh = (delta W^T) * relu_mask chain on the tensor
 //          cores and write every layer's delta (bf16) to a workspace;
-//      (b) split-K dW = act^T delta (and db = 1^T delta) over 64x64 output
-//          tiles of the 26 parameters; each split owns a fixed range of
-//          points and writes an fp32 partial;
+//      (b) split-K dW = act^T delta (and db = 1^T delta) of the 26
+//          parameters (tile_mm.cuh: TMA ring, wgmma, CTAs of up to 128 x
+//          256 outputs, db folded into the weight task that reads the same
+//          deltas); each split owns a fixed range of points and writes an
+//          fp32 partial;
 //      (c) a fixed-order sum of the partials.
 //    Two launches on the same inputs give bitwise-equal gradients.  (b) and
 //    (c) are tile_mm.cuh's split-K pass, shared with film_mlp.cu.

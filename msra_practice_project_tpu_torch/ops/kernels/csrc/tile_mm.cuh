@@ -12,6 +12,7 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -258,6 +259,40 @@ __device__ void layer_mm(const Operand<T>* ops, int n_ops, int nout, T* wbuf,
 // ---------------------------------------------------------------------------
 // Split-K dW = act^T delta (db = 1^T delta) and the fixed-order sum of splits
 // ---------------------------------------------------------------------------
+//
+// It replaces the dW accumulation of the Pallas kernels' sequential grids:
+// msra_practice_project_tpu/ops/pallas/nerf_mlp.py::_grad_body (K2, K5) and
+// the dW part of film_mlp.py::_bwd_kernel (K7).  For every task (a0, M, d0,
+// N, off): dW[m, n] = sum_p act[p, a0 + m] delta[p, d0 + n], or db[n] =
+// sum_p delta[p, d0 + n] when a0 = -1.  Each split owns a fixed range of
+// points (chunks_per_split chunks of PK) and writes an fp32 partial
+// partials[split][off + m N + n]; sum_splits_kernel adds the splits in split
+// order, so repeats are bitwise equal and a pass over chunks of whole splits
+// (K5, K7) gives the whole pass's partials.
+//
+// bf16 (dw_splitk_tc_kernel).  Bound on an H100: the bytes, each used act
+// and delta column read once (K2: 9,952 B per point, ~0.78 ms at the NeRF
+// step's 262,144 points at 3.35 TB/s, against ~0.32 ms of bf16 tensor-core
+// work).  Design: a CTA owns up to 128 (X) x 256 (Y) outputs of one task (a
+// "job"), X the weight's rows and Y its columns, or, for a task whose N is
+// not a multiple of 64 (the 8-wide heads), X the delta columns and Y the act
+// columns; so a 256 x 256 weight reads each act column once and each delta
+// column twice (the two X halves of one task are neighbouring CTAs, so the
+// second read tends to come from L2): K2's tasks load ~16 KB per point, K7's
+// ~15 KB.  A bias task is folded into the job of the first weight task with
+// the same delta columns: db is a fixed-order column sum of the delta tiles
+// that CTA already holds, so bias tasks read nothing of their own.  One
+// producer warp keeps a ring of DW_STAGES stages in flight with TMA (2-D
+// tensor maps over acts and deltas, boxes of PK points x 64 columns, 128-byte
+// swizzle; a box past the row end is zero-filled, and the columns past M or N
+// only feed outputs that are not written); each stage reports on an
+// mbarrier.  Two consumer warpgroups, each 64 X rows, run wgmma.m64nNk16
+// (N = 128 or 256) with both operands MN-major in shared memory (points are
+// the contraction dimension of both), release the stage when their wgmmas
+// have retired, and write the fp32 accumulators straight from registers.
+//
+// fp32 check mode (dw_splitk_f32_kernel): 64 x 64 output tiles, cp.async
+// copies and FMA on the CUDA cores.
 
 constexpr int MAX_TASKS = 32;
 struct Tasks {
@@ -265,8 +300,8 @@ struct Tasks {
   int v[MAX_TASKS][5];  // act col (-1: ones), M, delta col, N, out offset
   int tile_start[MAX_TASKS + 1];
 };
-constexpr int TT = 64;         // output tile edge
-constexpr int PK = 32;         // points per chunk
+constexpr int TT = 64;         // fp32 output tile edge
+constexpr int PK = 32;         // points per chunk (a split is whole chunks)
 constexpr int DW_THREADS = 128;
 
 // Fills the tile table from `tasks` (n_tasks rows of 5 ints); returns the
@@ -285,28 +320,26 @@ inline int make_tasks(const int* tasks, int n_tasks, Tasks& tk) {
   return total;
 }
 
-template <typename T>
-constexpr size_t dw_smem() {
-  return 2 * 2 * (size_t)PK * (TT + pad16<T>()) * sizeof(T)
+constexpr size_t dw_f32_smem() {
+  return 2 * 2 * (size_t)PK * (TT + pad16<float>()) * sizeof(float)
          + (size_t)TT * TT * 4;
 }
 
-// grid (tiles of all tasks, splits): each CTA owns one 64x64 output tile and
-// the fixed point range of its split (cps chunks of PK points, the last
-// split's possibly fewer or none), and writes an fp32 partial
+// fp32: grid (tiles of all tasks, splits): each CTA owns one 64x64 output
+// tile and the fixed point range of its split (cps chunks of PK points, the
+// last split's possibly fewer or none), and writes an fp32 partial
 // (partials[split][total]).  acts/deltas are row-major with row strides
 // act_ld/delta_ld; n_pts is a multiple of PK.
-template <typename T>
 __global__ void __launch_bounds__(DW_THREADS)
-dw_splitk_kernel(const T* __restrict__ acts, int act_ld,
-                 const T* __restrict__ deltas, int delta_ld,
-                 float* __restrict__ partials, int n_pts, int cps, int total,
-                 Tasks tk) {
-  constexpr int LD = TT + pad16<T>(), V = pad16<T>(), CPR = TT / V;
+dw_splitk_f32_kernel(const float* __restrict__ acts, int act_ld,
+                     const float* __restrict__ deltas, int delta_ld,
+                     float* __restrict__ partials, int n_pts, int cps,
+                     int total, Tasks tk) {
+  constexpr int LD = TT + pad16<float>(), V = pad16<float>(), CPR = TT / V;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);     // [2][PK][LD]
-  T* Ds = As + 2 * PK * LD;               // [2][PK][LD]
-  float* Cs = reinterpret_cast<float*>(Ds + 2 * PK * LD);  // [TT][TT]
+  float* As = reinterpret_cast<float*>(smem);  // [2][PK][LD]
+  float* Ds = As + 2 * PK * LD;                // [2][PK][LD]
+  float* Cs = Ds + 2 * PK * LD;                // [TT][TT]
 
   int t = 0;
   while ((int)blockIdx.x >= tk.tile_start[t + 1]) ++t;
@@ -320,7 +353,7 @@ dw_splitk_kernel(const T* __restrict__ acts, int act_ld,
 
   if (a0 < 0) {  // bias: a column of ones
     for (int i = threadIdx.x; i < 2 * PK * LD; i += DW_THREADS)
-      As[i] = from_f<T>((i % LD) == 0 ? 1.f : 0.f);
+      As[i] = (i % LD) == 0 ? 1.f : 0.f;
   }
   auto load = [&](int c, int b) {
     for (int i = threadIdx.x; i < PK * CPR; i += DW_THREADS) {
@@ -335,71 +368,27 @@ dw_splitk_kernel(const T* __restrict__ acts, int act_ld,
     cp_commit();
   };
 
-  if constexpr (is_bf16<T>()) {
-    const int warp = threadIdx.x / 32;
-    const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  const int n = threadIdx.x % TT, mb = (threadIdx.x / TT) * 32;
+  float acc[32];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int m = 0; m < 32; ++m) acc[m] = 0.f;
+  if (c_lo < c_hi) load(c_lo, 0);
+  for (int c = c_lo; c < c_hi; ++c) {
+    const int b = (c - c_lo) & 1;
+    if (c + 1 < c_hi) { load(c + 1, b ^ 1); cp_wait<1>(); }
+    else { cp_wait<0>(); }
+    __syncthreads();
+    const float* A = As + b * PK * LD;
+    const float* D = Ds + b * PK * LD;
+    for (int p = 0; p < PK; ++p) {
+      const float d = D[p * LD + n];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    if (c_lo < c_hi) load(c_lo, 0);
-    for (int c = c_lo; c < c_hi; ++c) {
-      const int b = (c - c_lo) & 1;
-      if (c + 1 < c_hi) { load(c + 1, b ^ 1); cp_wait<1>(); }
-      else { cp_wait<0>(); }
-      __syncthreads();
-      const T* A = As + b * PK * LD;
-      const T* D = Ds + b * PK * LD;
-#pragma unroll
-      for (int kk = 0; kk < PK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16_t, wmma::col_major>
-            fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::row_major>
-            fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], A + kk * LD + wm + i * 16, LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], D + kk * LD + wn + j * 16, LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
+      for (int m = 0; m < 32; ++m) acc[m] += A[p * LD + mb + m] * d;
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm + i * 16) * TT + wn + j * 16,
-                                acc[i][j], TT, wmma::mem_row_major);
-  } else {
-    const int n = threadIdx.x % TT, mb = (threadIdx.x / TT) * 32;
-    float acc[32];
-#pragma unroll
-    for (int m = 0; m < 32; ++m) acc[m] = 0.f;
-    if (c_lo < c_hi) load(c_lo, 0);
-    for (int c = c_lo; c < c_hi; ++c) {
-      const int b = (c - c_lo) & 1;
-      if (c + 1 < c_hi) { load(c + 1, b ^ 1); cp_wait<1>(); }
-      else { cp_wait<0>(); }
-      __syncthreads();
-      const T* A = As + b * PK * LD;
-      const T* D = Ds + b * PK * LD;
-      for (int p = 0; p < PK; ++p) {
-        const float d = to_f(D[p * LD + n]);
-#pragma unroll
-        for (int m = 0; m < 32; ++m) acc[m] += to_f(A[p * LD + mb + m]) * d;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int m = 0; m < 32; ++m) Cs[(mb + m) * TT + n] = acc[m];
+    __syncthreads();
   }
+#pragma unroll
+  for (int m = 0; m < 32; ++m) Cs[(mb + m) * TT + n] = acc[m];
   __syncthreads();
   float* dst = partials + (size_t)blockIdx.y * (size_t)total + off;
   for (int i = threadIdx.x; i < TT * TT; i += DW_THREADS) {
@@ -408,7 +397,394 @@ dw_splitk_kernel(const T* __restrict__ acts, int act_ld,
   }
 }
 
-// dw[i] = (accumulate ? dw[i] : 0) + sum over splits, in split order.
+// --- bf16: TMA, mbarriers and wgmma ----------------------------------------
+
+constexpr int DW_STAGES = 8;
+constexpr int DW_BOX = 64;                    // columns per TMA box: 128 B
+constexpr int DW_BOX_BYTES = PK * DW_BOX * 2;  // 4096
+constexpr int DW_XB = 2, DW_YB = 4;           // boxes per stage: X, Y
+constexpr int DW_STAGE_BYTES = (DW_XB + DW_YB) * DW_BOX_BYTES;
+constexpr int DW_CONSUMERS = 256;             // two warpgroups
+constexpr int DW_TC_THREADS = DW_CONSUMERS + 32;  // and one producer warp
+constexpr size_t DW_TC_SMEM =
+    1024 + (size_t)DW_STAGES * DW_STAGE_BYTES + 2 * DW_STAGES * 8;
+static_assert(DW_TC_SMEM <= 232448, "split-K ring exceeds shared memory");
+
+// One CTA's share of a task: X columns [x0, x0 + xm) (xm <= 128) against Y
+// columns [y0, y0 + yn) (yn <= 256); output (x, y) goes to partial index
+// off + x sx + y sy.  With X_DELTA, X is read from the deltas and Y from
+// the acts.  boff >= 0: the CTA also writes db[j] = sum_p delta column j
+// (j < bn) to partial index boff + j.
+constexpr int MAX_JOBS = 64;
+constexpr int X_DELTA = 1;
+struct DwJob {
+  int x0, xm, y0, yn, off, sx, sy, flags, boff, bn;
+};
+struct DwJobs {
+  int n;
+  DwJob j[MAX_JOBS];
+};
+
+// The jobs of a task table, weight tasks in order, X halves of a task
+// adjacent; false when they exceed MAX_JOBS or a bias task shares its delta
+// columns (d0, N) with no weight task whose first job holds them all.
+inline bool make_jobs(const Tasks& tk, DwJobs& js) {
+  js.n = 0;
+  int first[MAX_TASKS];
+  for (int t = 0; t < tk.n; ++t) {
+    const int a0 = tk.v[t][0], M = tk.v[t][1], d0 = tk.v[t][2],
+              N = tk.v[t][3], off = tk.v[t][4];
+    first[t] = -1;
+    if (a0 < 0) continue;
+    const bool swap = N % DW_BOX != 0 && M > N;
+    const int xc = swap ? d0 : a0, xn = swap ? N : M;
+    const int yc = swap ? a0 : d0, yn = swap ? M : N;
+    const int sx = swap ? 1 : N, sy = swap ? N : 1;
+    first[t] = js.n;
+    for (int x = 0; x < xn; x += 2 * DW_BOX)
+      for (int y = 0; y < yn; y += 4 * DW_BOX) {
+        if (js.n == MAX_JOBS) return false;
+        js.j[js.n++] = DwJob{xc + x, min(2 * DW_BOX, xn - x), yc + y,
+                             min(4 * DW_BOX, yn - y), off + x * sx + y * sy,
+                             sx, sy, swap ? X_DELTA : 0, -1, 0};
+      }
+  }
+  for (int t = 0; t < tk.n; ++t) {
+    if (tk.v[t][0] >= 0) continue;
+    const int d0 = tk.v[t][2], N = tk.v[t][3];
+    int u = 0;
+    while (u < tk.n && !(first[u] >= 0 && tk.v[u][2] == d0
+                         && tk.v[u][3] == N))
+      ++u;
+    if (u == tk.n) return false;
+    DwJob& j = js.j[first[u]];
+    const int held = (j.flags & X_DELTA) ? j.xm : j.yn;
+    if (j.boff >= 0 || held != N) return false;
+    j.boff = tk.v[t][4];
+    j.bn = N;
+  }
+  return true;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete.  A wait that lasts
+// ~2^34 cycles (seconds) traps, so a lost arrival fails the launch instead
+// of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (i == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+// A box of the 2-D tensor map at (column c0, row c1) into shared memory at
+// dst, completing on mbarrier bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The wgmma descriptor of an MN-major operand with 128-byte swizzle at
+// shared address addr (1024-byte aligned atoms): rows of 64 MN elements
+// (128 B) per contraction index, 8-row atoms `sbo` bytes apart along the
+// contraction, 64-element MN blocks `lbo` bytes apart.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
+         | (uint64_t)1 << 62;  // 128-byte swizzle
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// D[64, N] += A[64, 16] B[16, N]: bf16 operands, fp32 accumulators; A and B
+// in shared memory, both MN-major (transpose bits set), scale-d 1.
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int NY>
+__device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
+                                           uint64_t db) {
+  if constexpr (NY == 256) wgmma_m64n256k16(d, da, db);
+  else wgmma_m64n128k16(d, da, db);
+}
+
+// A stage: X boxes at 0 and DW_BOX_BYTES, Y boxes from 2 DW_BOX_BYTES; in a
+// box, point p's 64 columns are 128 bytes at p * 128, their 16-byte chunks
+// permuted by the swizzle (chunk ^ p % 8).
+__device__ __forceinline__ int swizzled(int p, int col) {
+  return p * 128 + ((((col >> 3) ^ p) & 7) << 4) + (col & 7) * 2;
+}
+
+// The consumers' loop and epilogue for a job of NY (128 or 256) Y columns.
+template <int NY>
+__device__ __forceinline__ void dw_consume(const DwJob& jb, uint32_t ring,
+                                           const unsigned char* ring_g,
+                                           uint32_t bars, int n_it,
+                                           float* __restrict__ dst) {
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32,
+            lane = threadIdx.x % 32;
+  const bool mma = wg * DW_BOX < jb.xm;
+  const int bcol = threadIdx.x;
+  const bool bias = jb.boff >= 0 && bcol < jb.bn;
+  const int bbase = ((jb.flags & X_DELTA) ? 0 : DW_XB * DW_BOX_BYTES)
+                    + (bcol / DW_BOX) * DW_BOX_BYTES;
+  float acc[NY / 2];
+#pragma unroll
+  for (int i = 0; i < NY / 2; ++i) acc[i] = 0.f;
+  float bsum = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % DW_STAGES;
+    mbar_wait(bars + 8 * s, (it / DW_STAGES) & 1);
+    __syncwarp();  // wgmma is .aligned: the warp leaves the wait together
+    const uint32_t st = ring + s * DW_STAGE_BYTES;
+    if (mma) {
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < PK / 16; ++k)
+        wgmma_tile<NY>(
+            acc,
+            gmma_desc(st + wg * DW_BOX_BYTES + k * 2048, DW_BOX_BYTES, 1024),
+            gmma_desc(st + DW_XB * DW_BOX_BYTES + k * 2048, DW_BOX_BYTES,
+                      1024));
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    if (bias) {
+      const unsigned char* b = ring_g + s * DW_STAGE_BYTES + bbase;
+#pragma unroll 8
+      for (int p = 0; p < PK; ++p)
+        bsum += __bfloat162float(*reinterpret_cast<const bf16_t*>(
+            b + swizzled(p, bcol % DW_BOX)));
+    }
+    mbar_arrive(bars + 8 * (DW_STAGES + s));
+  }
+  // accumulator (row, col) of thread (warp, lane): rows warp * 16 + lane / 4
+  // (+ 8), columns 8 j + 2 (lane % 4) (+ 1), register 4 j + 2 h + c
+  if (mma) {
+    const int r0 = wg * DW_BOX + warp * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < NY / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int x = r0 + 8 * h, y = 8 * j + 2 * (lane % 4) + c;
+          if (x < jb.xm && y < jb.yn)
+            dst[jb.off + x * jb.sx + y * jb.sy] = acc[4 * j + 2 * h + c];
+        }
+  }
+  if (bias) dst[jb.boff + bcol] = bsum;
+}
+
+// bf16: grid (jobs, splits); each CTA runs one job over its split's point
+// range (cps chunks of PK points, the last split's possibly fewer or none)
+// and writes its outputs of partials[split][total].  ptxas -v (sm_90a,
+// CUDA 12.9): 161 registers, no spills, so setmaxnreg is not needed.
+__global__ void __launch_bounds__(DW_TC_THREADS, 1)
+dw_splitk_tc_kernel(const __grid_constant__ CUtensorMap act_map,
+                    const __grid_constant__ CUtensorMap delta_map,
+                    float* __restrict__ partials, int n_pts, int cps,
+                    int total, const __grid_constant__ DwJobs jobs) {
+  const DwJob jb = jobs.j[blockIdx.x];
+  const int n_chunks = n_pts / PK;
+  const int c_lo = min((int)blockIdx.y * cps, n_chunks);
+  const int n_it = min(c_lo + cps, n_chunks) - c_lo;
+  const int nxb = (jb.xm + DW_BOX - 1) / DW_BOX;
+  const int nyb = jb.yn <= 2 * DW_BOX ? 2 : 4;
+
+  extern __shared__ unsigned char dw_smem_raw[];
+  const uint32_t raw = smem_u32(dw_smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
+  const uint32_t bars = ring + DW_STAGES * DW_STAGE_BYTES;  // full, empty
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (DW_STAGES + s), DW_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DW_CONSUMERS) {  // the producer warp: one thread
+    if (threadIdx.x == DW_CONSUMERS) {
+      const bool xd = jb.flags & X_DELTA;
+      const CUtensorMap* xmap = xd ? &delta_map : &act_map;
+      const CUtensorMap* ymap = xd ? &act_map : &delta_map;
+      const uint32_t tx = (nxb + nyb) * DW_BOX_BYTES;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % DW_STAGES, row = (c_lo + it) * PK;
+        mbar_wait(bars + 8 * (DW_STAGES + s), ((it / DW_STAGES) & 1) ^ 1);
+        mbar_expect_tx(bars + 8 * s, tx);
+        const uint32_t st = ring + s * DW_STAGE_BYTES;
+        for (int b = 0; b < nxb; ++b)
+          tma_load_2d(st + b * DW_BOX_BYTES, xmap, jb.x0 + b * DW_BOX, row,
+                      bars + 8 * s);
+        for (int b = 0; b < nyb; ++b)
+          tma_load_2d(st + (DW_XB + b) * DW_BOX_BYTES, ymap,
+                      jb.y0 + b * DW_BOX, row, bars + 8 * s);
+      }
+    }
+    return;
+  }
+  const unsigned char* ring_g = dw_smem_raw + (ring - raw);
+  float* dst = partials + (size_t)blockIdx.y * (size_t)total;
+  if (nyb == 4)
+    dw_consume<256>(jb, ring, ring_g, bars, n_it, dst);
+  else
+    dw_consume<128>(jb, ring, ring_g, bars, n_it, dst);
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (libcuda is not linked).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 [rows, ld] row-major tensor map with boxes of PK rows x 64 columns
+// and 128-byte swizzle (boxes past the row end or the last row read zeros).
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int ld,
+                            int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)ld, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16_t)};
+  const cuuint32_t box[2] = {DW_BOX, PK}, unit[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// dw = (accumulate ? dw : 0) + sum over splits, in split order.
 __global__ void sum_splits_kernel(const float* __restrict__ partials,
                                   float* __restrict__ dw, int total,
                                   int splits, int accumulate) {
@@ -430,13 +806,29 @@ template <typename T>
 cudaError_t dw_partials(const T* acts, int act_ld, const T* deltas,
                         int delta_ld, float* partials, int n_pts, int splits,
                         int cps, const Tasks& tk, int total, cudaStream_t st) {
-  auto kw = dw_splitk_kernel<T>;
-  constexpr size_t smw = dw_smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kw, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smw);
-  if (e != cudaSuccess) return e;
-  kw<<<dim3(tk.tile_start[tk.n], splits), DW_THREADS, smw, st>>>(
-      acts, act_ld, deltas, delta_ld, partials, n_pts, cps, total, tk);
+  if constexpr (is_bf16<T>()) {
+    DwJobs js;
+    if (!make_jobs(tk, js)) return cudaErrorInvalidValue;
+    CUtensorMap amap, dmap;
+    cudaError_t e = make_map(&amap, acts, act_ld, n_pts);
+    if (e == cudaSuccess) e = make_map(&dmap, deltas, delta_ld, n_pts);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dw_splitk_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)DW_TC_SMEM);
+    if (e != cudaSuccess) return e;
+    dw_splitk_tc_kernel<<<dim3(js.n, splits), DW_TC_THREADS, DW_TC_SMEM,
+                          st>>>(amap, dmap, partials, n_pts, cps, total, js);
+  } else {
+    constexpr size_t smw = dw_f32_smem();
+    cudaError_t e = cudaFuncSetAttribute(
+        dw_splitk_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smw);
+    if (e != cudaSuccess) return e;
+    dw_splitk_f32_kernel<<<dim3(tk.tile_start[tk.n], splits), DW_THREADS, smw,
+                           st>>>(acts, act_ld, deltas, delta_ld, partials,
+                                 n_pts, cps, total, tk);
+  }
   return cudaGetLastError();
 }
 
@@ -463,3 +855,30 @@ cudaError_t dw_splitk(const T* acts, int act_ld, const T* deltas,
 }
 
 }  // namespace tile_mm
+
+// The bf16 split-K pass alone, for checks and timings: partials [splits,
+// total] and their sum dw [total] from acts [n, act_ld] and deltas [n,
+// delta_ld] (16-byte aligned rows) over `tasks` (n_tasks rows of 5 ints:
+// act col or -1, M, delta col, N, offset); n a multiple of PK.
+extern "C" int tile_mm_dw_splitk_bf16(const void* acts, int act_ld,
+                                      const void* deltas, int delta_ld,
+                                      float* partials, float* dw, int n,
+                                      int splits, const int* tasks,
+                                      int n_tasks, void* stream) {
+  using namespace tile_mm;
+  if (n < PK || n % PK || splits < 1 || n_tasks < 1 || n_tasks > MAX_TASKS
+      || act_ld % 8 || delta_ld % 8)
+    return (int)cudaErrorInvalidValue;
+  for (int t = 0; t < n_tasks; ++t) {
+    const int* v = tasks + 5 * t;
+    if ((v[0] >= 0 && v[0] + v[1] > act_ld) || v[2] + v[3] > delta_ld
+        || v[1] < 1 || v[3] < 1 || v[4] < 0)
+      return (int)cudaErrorInvalidValue;
+  }
+  Tasks tk;
+  const int total = make_tasks(tasks, n_tasks, tk);
+  return (int)dw_splitk<bf16_t>(
+      static_cast<const bf16_t*>(acts), act_ld,
+      static_cast<const bf16_t*>(deltas), delta_ld, partials, dw, n, splits,
+      tk, total, 0, reinterpret_cast<cudaStream_t>(stream));
+}

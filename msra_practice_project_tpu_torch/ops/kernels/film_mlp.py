@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.nn import trunk_sin, trunk_sin_vjp
+from . import dw_splitk as DW
 
 IN_PAD = 8       # [pos(3), dir(3), pad(2)]
 HID = 256
@@ -407,6 +408,7 @@ def film_mlp_bwd(x: torch.Tensor, film: torch.Tensor, dy: torch.Tensor, w,
     if err:
         raise RuntimeError(f"film_mlp_bwd launch failed: CUDA error {err}")
     film_mlp_bwd.launches += 1
+    DW.dw_splitk.launches += -(-n_img // cb) if bf16 else 0  # one per chunk
     return dx, dfilm, [grads[GRAD_OFFS[k][0]:GRAD_OFFS[k][1]].view(
         PACK_SHAPES[k]) for k in PACK_KEYS]
 

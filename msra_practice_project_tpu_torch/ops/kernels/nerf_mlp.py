@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.nn import positional_encoding
+from . import dw_splitk as DW
 
 IN_PAD = 8       # [pos(3), dir(3), pad(2)]
 PE_POS = 64      # 60 used
@@ -205,12 +206,15 @@ def nerf_mlp_fwd_save_plain(x: torch.Tensor, w: list, bf16: bool):
     return out, acts
 
 
-def _delta_chain_plain(w: list, dy: torch.Tensor, a: dict, bf16: bool):
+def _delta_chain_plain(w: list, dy: torch.Tensor, a: dict, bf16: bool,
+                       deltas: dict | None = None):
     """``_grad_body`` with ``need_dx=False`` from the activations ``a``: (the
     26 parameter gradients, fp32, in ``PACK_KEYS`` order and packed shapes;
-    the deltas ``(dh9, dh5, dh0)`` as the kernels store them)."""
+    the deltas ``(dh9, dh5, dh0)`` as the kernels store them).  Every delta
+    goes into ``deltas`` by ``DELTA_SLOTS`` name, fp32, when it is given."""
     w = dict(zip(PACK_KEYS, (t.float() for t in w)))
     g = {}
+    dl = {} if deltas is None else deltas
 
     def mmT(act, delta):  # act^T @ delta
         return _mm(act.t(), delta, bf16)
@@ -233,25 +237,26 @@ def _delta_chain_plain(w: list, dy: torch.Tensor, a: dict, bf16: bool):
     dsig = dy[:, 3:4] * mask(sig[:, :1])
     dsig = F.pad(dsig, (0, OUT_PAD - 1))
 
-    dr_pre = drgb * rgb * (1.0 - rgb)
+    dr_pre = dl["dr"] = drgb * rgb * (1.0 - rgb)
+    dl["dsig"] = dsig
     acc("Wr", "br", a["h9"], dr_pre)
-    dh9 = mmB(dr_pre, w["Wr"]) * mask(a["h9"])
+    dh9 = dl["dh9"] = mmB(dr_pre, w["Wr"]) * mask(a["h9"])
     acc("W9a", "b9", a["hd"], dh9)
     acc("W9b", None, a["pe_d"], dh9)
-    dhd = mmB(dh9, w["W9a"])
+    dhd = dl["dhd"] = mmB(dh9, w["W9a"])
     acc("Ws", "bs", a["h7"], dsig)
     acc("W8", "b8", a["h7"], dhd)
-    dh = (mmB(dsig, w["Ws"]) + mmB(dhd, w["W8"])) * mask(a["h7"])
+    dh = dl["dh7"] = (mmB(dsig, w["Ws"]) + mmB(dhd, w["W8"])) * mask(a["h7"])
     acc("W7", "b7", a["h6"], dh)
-    dh = mmB(dh, w["W7"]) * mask(a["h6"])
+    dh = dl["dh6"] = mmB(dh, w["W7"]) * mask(a["h6"])
     acc("W6", "b6", a["h5"], dh)
-    dh5 = mmB(dh, w["W6"]) * mask(a["h5"])
+    dh5 = dl["dh5"] = mmB(dh, w["W6"]) * mask(a["h5"])
     acc("W5a", None, a["pe_p"], dh5)
     acc("W5b", "b5", a["h4"], dh5)
-    dh = mmB(dh5, w["W5b"]) * mask(a["h4"])
+    dh = dl["dh4"] = mmB(dh5, w["W5b"]) * mask(a["h4"])
     for i in (4, 3, 2, 1):
         acc(f"W{i}", f"b{i}", a[f"h{i - 1}"], dh)
-        dh = mmB(dh, w[f"W{i}"]) * mask(a[f"h{i - 1}"])
+        dh = dl[f"dh{i - 1}"] = mmB(dh, w[f"W{i}"]) * mask(a[f"h{i - 1}"])
     acc("W0", "b0", a["pe_p"], dh)
     dt = torch.bfloat16 if bf16 else torch.float32
     return [g[k] for k in PACK_KEYS], tuple(t.to(dt) for t in (dh9, dh5, dh))
@@ -264,6 +269,19 @@ def nerf_mlp_bwd_saved_plain(w: list, dy: torch.Tensor, acts: torch.Tensor,
     acts = acts.float()
     a = {name: acts[:, o0:o1] for name, (o0, o1) in ACT_OFFS.items()}
     return _delta_chain_plain(w, dy, a, bf16)
+
+
+def nerf_mlp_deltas_plain(w: list, dy: torch.Tensor, acts: torch.Tensor,
+                          bf16: bool) -> torch.Tensor:
+    """K2's delta workspace ``[N, DELTA_W]`` in ``DELTA_SLOTS`` order, as its
+    delta chain stores it (bf16 when ``bf16``): the deltas its split-K pass
+    reads."""
+    acts = acts.float()
+    a = {name: acts[:, o0:o1] for name, (o0, o1) in ACT_OFFS.items()}
+    dl = {}
+    _delta_chain_plain(w, dy, a, bf16, dl)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return torch.cat([dl[name] for name, _ in DELTA_SLOTS], dim=1).to(dt)
 
 
 def nerf_mlp_bwd_plain(x: torch.Tensor, w: list, dy: torch.Tensor,
@@ -448,7 +466,6 @@ def grad_tasks() -> list:
 
 
 _TASKS = [v for row in grad_tasks() for v in row]
-DW_PK = 32               # points per chunk of tile_mm.cuh's split-K pass
 SCRATCH_BYTES = 2 ** 31  # K5's workspaces
 
 
@@ -480,7 +497,7 @@ def chunk_rows(n: int, bf16: bool) -> int:
     multiple of ``ROW_MULT``, its workspaces within ``SCRATCH_BYTES`` (or
     one split when a split alone is larger)."""
     splits = bwd_splits(n)
-    per_split = -(-(n // DW_PK) // splits) * DW_PK
+    per_split = DW.chunks_per_split(n, splits) * DW.PK
     unit = math.lcm(per_split, ROW_MULT)
     per_pt = (ACT_PAD + DELTA_W) * (2 if bf16 else 4)
     return min(n, max(unit, SCRATCH_BYTES // per_pt // unit * unit))
@@ -522,6 +539,7 @@ def nerf_mlp_bwd_saved(w: list, dy: torch.Tensor, acts: torch.Tensor,
             partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
             len(PACK_KEYS), int(bf16), _stream(dev)), "nerf_mlp_bwd_saved")
     nerf_mlp_bwd_saved.launches += 1
+    DW.dw_splitk.launches += int(bf16)  # its split-K pass (fp32: FMA tiles)
     return _split_grads(dw), _pe_deltas(deltas, DELTA_OFFS)
 
 
@@ -558,6 +576,7 @@ def nerf_mlp_bwd(x: torch.Tensor, w: list, dy: torch.Tensor,
             partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
             len(PACK_KEYS), int(bf16), _stream(dev)), "nerf_mlp_bwd")
     nerf_mlp_bwd.launches += 1
+    DW.dw_splitk.launches += -(-n // rows) if bf16 else 0  # one per chunk
     return _split_grads(dw), (_pe_deltas(pe, PE_DELTA_OFFS) if need_dx
                               else None)
 

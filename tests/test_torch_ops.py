@@ -218,8 +218,9 @@ def test_render_image_edge_padding_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (and chip_smoke.py and
-    tools/torch_roofline_nerf.py) loads no JAX and no module of
+    """Importing every module of the port (and chip_smoke.py,
+    tools/torch_roofline_nerf.py and tools/torch_dw_probe.py) loads no JAX
+    and no module of
     msra_practice_project_tpu.  Exact names: the JAX package's name is a
     prefix of the port's."""
     code = r"""
@@ -229,8 +230,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
-spec = importlib.util.spec_from_file_location("tool", "tools/torch_roofline_nerf.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ("torch_roofline_nerf", "torch_dw_probe"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "optax", "flax", "msra_practice_project_tpu")
        or m.startswith(("jax.", "jaxlib.", "optax.", "flax.",

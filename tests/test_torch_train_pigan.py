@@ -140,14 +140,18 @@ def test_d_step_matches_jax(models):
     assert all(p.grad is None for p in g.parameters())
 
 
-@pytest.mark.parametrize("mode,gate", [(0, 5e-3), (1, 5e-2)])
+@pytest.mark.parametrize("mode,gate", [(0, 5e-3), (1, 5e-2), (None, 5e-3)])
 def test_g_step_matches_jax(models, monkeypatch, mode, gate):
     """g_loss at rtol 1e-5 and G's gradients in relative Frobenius norm.
     Mode 0 (the plain trunk under autograd) is the fp32 algorithm, held at
-    5e-3.  Mode 1, the default, backpropagates the trunk through K7's plain
-    version in bf16, as the card does; bf16 operands put it ~1e-2 from the
-    fp32 gradients, so it is held at 5e-2."""
-    monkeypatch.setenv("MSRA_TPU_FUSED_FILM", str(mode))
+    5e-3.  Mode 1, the card's default, backpropagates the trunk through K7's
+    plain version in bf16, as the card does; bf16 operands put it ~1e-2
+    from the fp32 gradients, so it is held at 5e-2.  Unset (None), CPU
+    tensors take mode 0, as the JAX package does off the TPU."""
+    if mode is None:
+        monkeypatch.delenv("MSRA_TPU_FUSED_FILM", raising=False)
+    else:
+        monkeypatch.setenv("MSRA_TPU_FUSED_FILM", str(mode))
     jg, jd, gp, dp, g, d = models
     real, z = _inputs(1)
     key = jax.random.PRNGKey(6)
