@@ -4,7 +4,9 @@ one NVIDIA GPU.
 
 Phases; any failure exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the sources
-     in this checkout, one nvcc per source, all started together;
+     in this checkout, one nvcc per source, all started together; the
+     built FiLM library's SASS must hold HGMMA and no HMMA in the bf16
+     per-tile kernels of K7 and K8 (cuobjdump, or nvdisasm on a cubin);
 The split-K dW pass that K2, K5 and K7 share (csrc/tile_mm.cuh):
   1b. hold it, launched alone, against its plain version: one CTA first
      (a 64 x 256 product over 64 points against torch.mm in fp32), then
@@ -45,8 +47,11 @@ The rest of the fused NeRF MLP (K3, K6, K5, K4):
      and the least time the card could take;
 pi-GAN (K7, K8):
   10. hold K8 and K7 against their plain versions at the G step's two trunk
-     shapes (64 images of 8,192 and of 24,576 points), in fp32 and bf16, K7
-     with and without dx, and check that K7 is bitwise reproducible;
+     shapes (64 images of 8,192 and of 24,576 points) and at 3 images of
+     320 points (an odd number of 64-point tiles, so the last CTA's second
+     warpgroup has none, and a CTA whose two tiles lie in two images), in
+     fp32 and bf16, K7 with and without dx, and check that K7 is bitwise
+     reproducible;
   11. the pi-GAN path: `train_pigan.train` on configs/pi_gan/test.json in
      the default trunk mode 1 (plain forward, K7 backward) through both
      stages (iterations [20, 30], fade-in [0, 5]); K7 must be launched once
@@ -55,9 +60,11 @@ pi-GAN (K7, K8):
   12. the same recipe in mode 2 (K8 forward, K7 backward), 8 iterations of
      stage 0, the last 4 timed; K8 4 launches and K7 1 per iteration;
   13. both modes again for 6 iterations with torch.profiler on for the last
-     3: busy, idle share and the time by kernel;
+     3: busy, idle share and the time by kernel, K7's per-tile kernel by
+     name (per launch and per iteration);
   14. K8 and K7 per launch at both shapes beside the plain version and the
-     least time the card could take;
+     least time the card could take, and K8 in fp32 beside its plain
+     version;
   15. the split-K pass per launch at K2's two shapes and K7's coarse one,
      beside its plain version, the least time the card could take and a
      yardstick the port never calls: cuBLAS, one torch.mm (or column sum)
@@ -318,6 +325,11 @@ def check_bwd(torch, K, n):
 FILM_B, FILM_COARSE_P, FILM_FINE_P = 64, 32 * 32 * 8, 32 * 32 * 24
 FILM_SLICE = 16   # images per slice of the plain versions on the card
 FILM_ROWS = FILM_B * FILM_COARSE_P   # K7's rows at the coarse shape
+# 5 tiles per image: 15 per chunk, so the last CTA of the bf16 pass has one
+# idle warpgroup and CTA 2 holds tiles of images 0 and 1
+FILM_ODD = (3, 320)
+# K7's and K8's bf16 per-tile kernels (csrc/film_mlp.cu)
+TC_KERNELS = ("film_bwd_delta_tc_kernel", "film_fwd_tc_kernel")
 
 
 def film_inputs(torch, FK, n_img, n_pts, seed=0):
@@ -333,7 +345,8 @@ def film_inputs(torch, FK, n_img, n_pts, seed=0):
     theta, phi = gen.sample_poses(n_img, g)
     with torch.no_grad():
         film = gen.mapping(z)
-    res, n_s = 32, n_pts // (32 * 32)
+    res = 32
+    n_s = -(-n_pts // (res * res))   # the rays' first n_pts points
     focal = res / 2.0 / torch.tan(torch.tensor(6.0 * 3.141592653589793 / 180))
     from msra_practice_project_tpu_torch.ops.rays import get_rays_flat
     ro, rd = get_rays_flat(res, res, focal, pigan.camera_poses(theta, phi))
@@ -341,7 +354,7 @@ def film_inputs(torch, FK, n_img, n_pts, seed=0):
     pts = ro[..., None, :] + rd[..., None, :] * zv[..., None]
     dirs = (rd / rd.norm(dim=-1, keepdim=True))[..., None, :].expand(
         pts.shape)
-    x = torch.cat([pts, dirs], -1).reshape(n_img, n_pts, 6)
+    x = torch.cat([pts, dirs], -1).reshape(n_img, -1, 6)[:, :n_pts]
     packed = FK.pack_film_params(dict(gen.trunk.named_parameters()), True)
     w = [packed[k].detach() for k in FK.PACK_KEYS]
     dy = torch.randn(n_img, n_pts, FK.OUT_PAD, generator=g) * 1e-3
@@ -740,7 +753,8 @@ def roofline_path(torch, K, tool):
 def is_port_kernel(name: str) -> bool:
     """A kernel of the port's csrc/*.cu (its anonymous namespace or
     tile_mm.cuh), not one of PyTorch's or cuDNN's."""
-    return name.startswith(("void (anonymous namespace)::", "tile_mm::",
+    return name.startswith(("void (anonymous namespace)::",
+                            "(anonymous namespace)::", "tile_mm::",
                             "void tile_mm::"))
 
 
@@ -772,7 +786,17 @@ def profile_report(prof, timed, ms, unit):
                    for name, (t, n) in by_name.items()), reverse=True)
     for t, n, name in rows[:12]:
         print(f"  {t:8.4f} ms/{unit}  x{n:<5g} {name[:100]}", flush=True)
-    return busy, idle
+    return busy, idle, by_name
+
+
+def kernel_by_name(by_name, key, timed):
+    """One kernel's device time from a profile's {name: (ms, count)}: the
+    names that contain `key`, per iteration of `timed` and per launch."""
+    ms = sum(t for name, (t, _) in by_name.items() if key in name)
+    n = sum(c for name, (_, c) in by_name.items() if key in name)
+    return {"ms_per_iteration": ms / timed,
+            "launches_per_iteration": n / timed,
+            "ms_per_launch": ms / n if n else None}
 
 
 def profiled_window(torch, iterations, startup, timed):
@@ -782,7 +806,7 @@ def profiled_window(torch, iterations, startup, timed):
 
     prof = profile(activities=[ProfilerActivity.CUDA])
     ms = run_train(torch, iterations, startup, timed, window=prof)[0]
-    busy, idle = profile_report(prof, timed, ms, "step")
+    busy, idle, _ = profile_report(prof, timed, ms, "step")
     return ms, busy, idle
 
 
@@ -843,6 +867,17 @@ def time_film(torch, FK, n_img, n_pts, reps):
         "bwd_plain_ms": time_ms(torch, lambda: film_plain_sliced(
             torch, FK, x, film, dy, wk, True, False), 3),
     }
+    # K8 in fp32 (the fp32 check mode), beside the plain fp32 forward
+    wf = [t.cuda() for t in FK.kernel_weights(w, False)]
+
+    def plain_fwd_f32():
+        for lo in range(0, n_img, FILM_SLICE):
+            sl = slice(lo, lo + FILM_SLICE)
+            FK.film_mlp_fwd_plain(x[sl], film[sl], wf, False)
+
+    res["fwd_f32_ms"] = time_ms(torch, lambda: FK.film_mlp_fwd(
+        x, film, wf, False), reps)
+    res["fwd_f32_plain_ms"] = time_ms(torch, plain_fwd_f32, 3)
     b1, by1, b2, by2 = film_bounds(FK, n_img, n_pts, wk)
     res.update(fwd_bound_ms=b1, fwd_bound_by=by1, bwd_bound_ms=b2,
                bwd_bound_by=by2)
@@ -915,6 +950,83 @@ def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
     return ms, launches, ckpt, png
 
 
+def cuda_tool(name):
+    """The CUDA toolkit's `name` (cuobjdump, nvdisasm), or None."""
+    import shutil
+    from msra_practice_project_tpu_torch.ops.kernels import build
+    for path in (os.path.join(os.path.dirname(build.nvcc_path()), name),
+                 shutil.which(name) or ""):
+        if path and os.path.exists(path):
+            return path
+    return None
+
+
+def sass_of_film(build, lib_path):
+    """SASS of the built FiLM library: cuobjdump -sass on it, or nvdisasm
+    on a cubin of the same source and flags."""
+    cuobjdump = cuda_tool("cuobjdump")
+    if cuobjdump:
+        return "cuobjdump", subprocess.run(
+            [cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+            check=True, timeout=300).stdout
+    nvdisasm = cuda_tool("nvdisasm")
+    if not nvdisasm:
+        raise SystemExit("neither cuobjdump nor nvdisasm found")
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "film_mlp.cubin")
+        subprocess.run([build.nvcc_path(), *flags, "-cubin", "-o", cubin,
+                        os.path.join(build.CSRC, "film_mlp.cu")], check=True,
+                       capture_output=True, timeout=600)
+        return "nvdisasm", subprocess.run(
+            [nvdisasm, cubin], capture_output=True, text=True, check=True,
+            timeout=300).stdout
+
+
+def check_sass(build, lib_path):
+    """Fails unless each of TC_KERNELS has HGMMA (wgmma) and no HMMA (WMMA
+    or mma.sync) in its SASS; returns {kernel: (HGMMA count, HMMA count)}."""
+    import re
+    tool, sass = sass_of_film(build, lib_path)
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)|\.text\.([^\s,:]+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            cur = next((k for k in TC_KERNELS if k in name), None)
+            if cur:
+                counts.setdefault(cur, [0, 0])
+            continue
+        if cur:
+            counts[cur][0] += len(re.findall(r"\bHGMMA\b", line))
+            counts[cur][1] += len(re.findall(r"\bHMMA\b", line))
+    ok = (set(counts) == set(TC_KERNELS)
+          and all(g > 0 and h == 0 for g, h in counts.values()))
+    print(f"  SASS ({tool}): " + "; ".join(
+        f"{k} HGMMA {g}, HMMA {h}" for k, (g, h) in counts.items())
+        + f" -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the bf16 FiLM kernels are not on wgmma")
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def odd_shape_layout(FK, n_img, n_pts):
+    """Fails unless FILM_ODD gives the bf16 pass a chunk with an odd number
+    of tiles and a CTA whose two tiles lie in two images."""
+    cb = FK.chunk_images(n_img, n_pts, True)
+    tiles_per_img = n_pts // FK.TC_TILE
+    ctas = FK.cta_tiles(cb * tiles_per_img)
+    spans = [t for t in ctas if t[1] is not None
+             and t[0] // tiles_per_img != t[1] // tiles_per_img]
+    print(f"  {cb} image(s) per chunk, {cb * tiles_per_img} tiles, "
+          f"{len(ctas)} CTAs, last CTA {ctas[-1]}, CTAs across two images "
+          f"{spans}", flush=True)
+    if not (ctas[-1][1] is None and spans):
+        raise SystemExit("FILM_ODD does not reach the idle warpgroup or a "
+                         "CTA across images")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -941,6 +1053,7 @@ def main() -> int:
     libs = build.load_all(["nerf_mlp", "film_mlp"])
     print(f"  built {', '.join(os.path.basename(l._name) for l in libs)} "
           f"({time.perf_counter() - t0:.1f} s, in parallel)", flush=True)
+    sass = check_sass(build, libs[1]._name)
     torch.cuda.synchronize()
     summary, kernels = {}, []
 
@@ -1027,9 +1140,12 @@ def main() -> int:
             "main + fwdwall"))
 
     film_errs = {}
-    for n_pts in (FILM_COARSE_P, FILM_FINE_P):
-        phase(f"K7/K8 vs plain versions at B={FILM_B}, P={n_pts}")
-        for name, err in check_film(torch, FK, FILM_B, n_pts).items():
+    for n_img, n_pts in ((FILM_B, FILM_COARSE_P), (FILM_B, FILM_FINE_P),
+                         FILM_ODD):
+        phase(f"K7/K8 vs plain versions at B={n_img}, P={n_pts}")
+        if (n_img, n_pts) == FILM_ODD:
+            odd_shape_layout(FK, n_img, n_pts)
+        for name, err in check_film(torch, FK, n_img, n_pts).items():
             film_errs[name] = max(err, film_errs.get(name, 0.0))
         torch.cuda.synchronize()
 
@@ -1055,6 +1171,7 @@ def main() -> int:
                    pigan_mode2_images_per_s=64 / (ms2 / 1e3))
 
     from torch.profiler import ProfilerActivity, profile
+    delta = {}
     for mode in (1, 2):
         phase(f"profile: pi-GAN mode {mode}, stage 0, 6 iterations, "
               "torch.profiler on for the last 3")
@@ -1063,10 +1180,16 @@ def main() -> int:
             iterations=[6], fade_in_itrs=[0], batch_size=[64],
             resolution=[32], i_print=3, i_save=1000, i_image=1000), 3, 6,
             window=prof)[0]
-        busy, idle = profile_report(prof, 3, ms, "iteration")
+        busy, idle, by_name = profile_report(prof, 3, ms, "iteration")
         summary.update({f"pigan_mode{mode}_profiled_ms_per_iter": ms,
                         f"pigan_mode{mode}_device_busy_ms": busy,
                         f"pigan_mode{mode}_profiled_idle_share": idle})
+        delta[f"mode{mode}"] = d = kernel_by_name(by_name, TC_KERNELS[0], 3)
+        print(f"  {TC_KERNELS[0]}: {d['ms_per_iteration']:.3f} ms/iteration "
+              f"in {d['launches_per_iteration']:g} launches, "
+              f"{d['ms_per_launch']:.4f} ms per launch", flush=True)
+        if not d["launches_per_iteration"]:
+            raise SystemExit(f"{TC_KERNELS[0]} not seen in the profile")
         torch.cuda.synchronize()
 
     phase("K7/K8 timings (bf16, CUDA events, median)")
@@ -1076,7 +1199,9 @@ def main() -> int:
         ftimes[label] = t = time_film(torch, FK, FILM_B, n_pts, 10)
         print(f"  {label} B={FILM_B} P={n_pts}: K8 {t['fwd_ms']:.4f} ms "
               f"(plain {t['fwd_plain_ms']:.4f}, bound "
-              f"{t['fwd_bound_ms']:.4f} {t['fwd_bound_by']}); K7 "
+              f"{t['fwd_bound_ms']:.4f} {t['fwd_bound_by']}; fp32 "
+              f"{t['fwd_f32_ms']:.4f}, plain fp32 "
+              f"{t['fwd_f32_plain_ms']:.4f}); K7 "
               f"{t['bwd_ms']:.4f} ms (plain {t['bwd_plain_ms']:.4f}, "
               f"bound {t['bwd_bound_ms']:.4f} {t['bwd_bound_by']})",
               flush=True)
@@ -1089,11 +1214,22 @@ def main() -> int:
             ("film_mlp_fwd", "fwd",
              "msra_practice_project_tpu/ops/pallas/film_mlp.py:160",
              launches2["film_mlp_fwd"], "train_pigan, test.json, mode 2")):
-        kernels.append(kernel_entry(
+        entry = kernel_entry(
             name, src, replaces, n_launches, film_errs[name],
             by_kernel(ftimes["coarse"], pre), by_kernel(ftimes["fine"], pre),
             f"B={FILM_B} P={FILM_COARSE_P} (coarse pass)",
-            f"B={FILM_B} P={FILM_FINE_P}", path))
+            f"B={FILM_B} P={FILM_FINE_P}", path)
+        tc = TC_KERNELS[0] if pre == "bwd" else TC_KERNELS[1]
+        entry["sass"] = {tc: {"HGMMA": sass[tc][0], "HMMA": sass[tc][1]}}
+        if pre == "bwd":
+            entry["delta_kernel"] = {"name": TC_KERNELS[0],
+                                     "profiled": delta}
+        else:
+            entry["f32"] = {label: {"ms": ftimes[label]["fwd_f32_ms"],
+                                    "plain_ms": ftimes[label][
+                                        "fwd_f32_plain_ms"]}
+                            for label in ("coarse", "fine")}
+        kernels.append(entry)
 
     phase("split-K dW pass timings (bf16, CUDA events, median)")
     dtimes = {}

@@ -510,10 +510,34 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
-// The wgmma descriptor of an MN-major operand with 128-byte swizzle at
-// shared address addr (1024-byte aligned atoms): rows of 64 MN elements
+// A box of shared memory at src to the 2-D tensor map at (column c0, row
+// c1), in this thread's bulk group; the box's shared memory may be reused
+// after bulk_wait_read<0>, and its writes are done after bulk_wait<0>.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0,
+                                             int c1, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The wgmma descriptor of an operand with 128-byte swizzle at shared
+// address addr (1024-byte aligned atoms).  MN-major: rows of 64 MN elements
 // (128 B) per contraction index, 8-row atoms `sbo` bytes apart along the
-// contraction, 64-element MN blocks `lbo` bytes apart.
+// contraction, 64-element MN blocks `lbo` bytes apart.  K-major (the FiLM
+// trunk's A): rows of 64 contraction elements per MN index, 8-row atoms
+// `sbo` bytes apart along MN, `lbo` unused; a k16 step inside the 128-byte
+// row advances addr by 32 B.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4)
@@ -529,6 +553,15 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// until at most N committed wgmma groups of this thread are pending
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operand reads, TMA); precedes the barrier the readers wait on
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // D[64, N] += A[64, 16] B[16, N]: bf16 operands, fp32 accumulators; A and B
@@ -561,8 +594,13 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D[64, 256] (+)= A[64, 16] B[16, 256]: as wgmma_m64n128k16, B MN-major;
+// A MN-major when TA = 1 (the split-K pass), K-major when TA = 0 (the FiLM
+// trunk's activations); accumulate = 0 ignores D's old values.
+template <int TA = 1>
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -577,7 +615,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -604,7 +642,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA));
 }
 
 template <int NY>

@@ -86,6 +86,16 @@ BIAS_OFF = GRAD_OFFS["b0"][0]
 # K7's scratch is bounded by running its passes over chunks of whole images.
 SCRATCH_BYTES = 2 ** 31
 
+# The bf16 per-tile pass (csrc/film_mlp.cu, "bf16: the per-tile pass on
+# wgmma"): a CTA's two warpgroups own 64-point tiles 2 * cta and 2 * cta + 1
+# and share one TMA stream of weight slices (TC_STAGE_BYTES each: 32 rows of
+# a weight stack) through a ring of TC_STAGES; a warpgroup's activations are
+# four TC_A_BLOCK blocks of 64 points x 64 columns, 128-byte swizzled.
+TC_TILE = 64
+TC_STAGES = 6
+TC_STAGE_BYTES = 32 * HID * 2
+TC_A_BLOCK = TC_TILE * 64 * 2
+
 
 # ---------------------------------------------------------------------------
 # Packing: FilmSirenNeRF parameters (torch layout, [out, in]) <-> the padded
@@ -143,6 +153,34 @@ def pad_points(x: torch.Tensor, n_img: int):
     flat = x.reshape(n_img, -1, x.shape[-1]).float()
     p = flat.shape[1]
     return F.pad(flat, (0, IN_PAD - flat.shape[2], 0, (-p) % PT_MULT)), p
+
+
+def weight_stacks(w) -> tuple:
+    """The bf16 per-tile pass's two weight streams, each ``[8 * 256, 256]``
+    row-major, in the order its products read them: the forward stack
+    ``[W1, ..., W7, W8a]`` and the backward stack ``[W8a^T, W7^T, ...,
+    W1^T]``."""
+    d = dict(zip(PACK_KEYS, w))
+    fwd = [d[f"W{l}"] for l in range(1, 8)] + [d["W8a"]]
+    return (torch.cat(fwd).contiguous(),
+            torch.cat([t.t() for t in reversed(fwd)]).contiguous())
+
+
+def cta_tiles(n_tiles: int) -> list:
+    """The bf16 pass's CTAs, each as its two warpgroups' tiles (None for a
+    warpgroup without one: the second of the last CTA when n_tiles is
+    odd)."""
+    return [(2 * c, 2 * c + 1 if 2 * c + 1 < n_tiles else None)
+            for c in range((n_tiles + 1) // 2)]
+
+
+def a_buffer_offset(p: int, col: int) -> int:
+    """Byte offset of (point p, column col) in a warpgroup's activation
+    buffer (``a_offset``): the 64-column block, then the point's 128-byte
+    row with its 16-byte chunks permuted by the 128-byte swizzle."""
+    c = col % 64
+    return ((col // 64) * TC_A_BLOCK + p * 128 + (((c >> 3) ^ p) & 7) * 16
+            + (c & 7) * 2)
 
 
 def kernel_weights(w, bf16: bool) -> list:
@@ -265,10 +303,11 @@ def _lib():
     lib = load("film_mlp")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.film_mlp_fwd.argtypes = [p, p, ctypes.POINTER(p), p, i, i, i, p]
+        lib.film_mlp_fwd.argtypes = [p, p, ctypes.POINTER(p), p, p, i, i, i,
+                                     p]
         lib.film_mlp_fwd.restype = i
         lib.film_mlp_bwd.argtypes = [
-            p, p, p, ctypes.POINTER(p), i, i, i, p, p, p, p, p, p, i,
+            p, p, p, ctypes.POINTER(p), p, p, i, i, i, p, p, p, p, p, p, i,
             ctypes.POINTER(ctypes.c_int), i, p, i, p, p, i, p]
         lib.film_mlp_bwd.restype = i
         lib._argtypes_set = True
@@ -322,8 +361,10 @@ def film_mlp_fwd(x: torch.Tensor, film: torch.Tensor, w,
     n_img, n_pts, wp = _check_inputs(x, film, w, bf16)
     out = torch.empty((n_img, n_pts, OUT_PAD), dtype=torch.float32,
                       device=x.device)
+    stack = weight_stacks(w)[0] if bf16 else None
     with torch.cuda.device(x.device):
         err = _lib().film_mlp_fwd(x.data_ptr(), film.data_ptr(), wp,
+                                  stack.data_ptr() if bf16 else None,
                                   out.data_ptr(), n_img, n_pts, int(bf16),
                                   _stream(x.device))
     if err:
@@ -390,16 +431,18 @@ def film_mlp_bwd(x: torch.Tensor, film: torch.Tensor, dy: torch.Tensor, w,
 
     acts, us, deltas = (empty(rows, ACT_W, dtype=dt), empty(rows, U_W, dtype=dt),
                         empty(rows, DELTA_W, dtype=dt))
-    tile_sums = empty(rows // (64 if bf16 else 32), SUM_W)
+    tile_sums = empty(rows // (TC_TILE if bf16 else 32), SUM_W)
     img_sums = empty(n_img, SUM_W)
     partials = empty(splits, BIAS_OFF)
     grads = empty(GRAD_TOTAL)
     dfilm = empty(n_img, N_FILM, 2 * HID)
     dx = empty(n_img, n_pts, IN_PAD) if need_dx else None
     tasks = (ctypes.c_int * len(_TASKS))(*_TASKS)
+    stacks = weight_stacks(w) if bf16 else (None, None)
     with torch.cuda.device(dev):
         err = _lib().film_mlp_bwd(
-            x.data_ptr(), film.data_ptr(), dy.data_ptr(), wp, n_img, n_pts,
+            x.data_ptr(), film.data_ptr(), dy.data_ptr(), wp,
+            *(t.data_ptr() if bf16 else None for t in stacks), n_img, n_pts,
             cb, acts.data_ptr(), us.data_ptr(), deltas.data_ptr(),
             tile_sums.data_ptr(), img_sums.data_ptr(), partials.data_ptr(),
             splits, tasks, len(_TASKS) // 5, grads.data_ptr(), BIAS_OFF,

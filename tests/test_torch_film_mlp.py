@@ -7,6 +7,9 @@ through ``weights.py``.
 The CUDA kernels themselves run only on a card: ``python3 chip_smoke.py``
 holds them against these plain versions there."""
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -302,6 +305,26 @@ def test_layout_tables_match_the_cuda_source():
     for a0, m, d0, n, _ in tasks:
         assert a0 % 8 == 0 and d0 % 8 == 0 and m % 8 == 0 and n % 8 == 0
         assert a0 + m <= K.ACT_W and d0 + n <= K.DELTA_W
+    # the constants the wrapper mirrors, as the CUDA source defines them
+    src = open(os.path.join(os.path.dirname(K.__file__), "csrc",
+                            "film_mlp.cu")).read()
+    hdr = open(os.path.join(os.path.dirname(K.__file__), "csrc",
+                            "tile_mm.cuh")).read()
+
+    def const(name, text=src):
+        return int(re.search(rf"\b{name} = (\d+)[,;]", text).group(1))
+
+    assert (const("IN_PAD"), const("OUT_PAD"), const("N_FILM"),
+            const("PT_MULT")) == (K.IN_PAD, K.OUT_PAD, K.N_FILM, K.PT_MULT)
+    assert (const("HID", hdr), const("KS", hdr)) == (K.HID, 32)
+    assert (const("TC_STAGES"), const("TC_TILE")) == (K.TC_STAGES, K.TC_TILE)
+    assert "TC_STAGE_BYTES = KS * HID * 2;" in src
+    assert K.TC_STAGE_BYTES == 32 * K.HID * 2
+    assert "TC_A_BLOCK = TC_TILE * 64 * 2;" in src
+    assert K.TC_A_BLOCK == K.TC_TILE * 64 * 2
+    for name, v in (("ACT_W", K.ACT_W), ("U_W", K.U_W),
+                    ("DELTA_W", K.DELTA_W), ("SUM_W", K.SUM_W)):
+        assert re.search(rf"\b{name} = .*// {v}\n", src), name
     # scratch stays in budget at the fine pass's shape
     cb = K.chunk_images(64, 24576, True)
     assert 1 <= cb < 64
