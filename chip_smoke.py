@@ -5,8 +5,10 @@ one NVIDIA GPU.
 Phases; any failure exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the sources
      in this checkout, one nvcc per source, all started together; the
-     built FiLM library's SASS must hold HGMMA and no HMMA in the bf16
-     per-tile kernels of K7 and K8 (cuobjdump, or nvdisasm on a cubin);
+     built libraries' SASS (cuobjdump, or nvdisasm on a cubin) must hold
+     HGMMA and no HMMA in the bf16 per-tile kernels of K7 and K8
+     (film_mlp) and of K1/K3/K6 and K2's delta chain (nerf_mlp), and no
+     HMMA anywhere in the NeRF library;
 The split-K dW pass that K2, K5 and K7 share (csrc/tile_mm.cuh):
   1b. hold it, launched alone, against its plain version: one CTA first
      (a 64 x 256 product over 64 points against torch.mm in fp32), then
@@ -16,20 +18,24 @@ The split-K dW pass that K2, K5 and K7 share (csrc/tile_mm.cuh):
      of a pass over the first half of the splits alone bitwise equal to the
      whole pass's;
 NeRF (K1, K2):
-  2. hold K1 and K2 against their plain PyTorch versions at the coarse- and
-     fine-pass shapes (65,536 and 196,608 points), in fp32 and in bf16, and
-     check that K2 is bitwise reproducible;
+  2. hold K1, K2 and K2's delta chain alone against their plain PyTorch
+     versions at the coarse- and fine-pass shapes (65,536 and 196,608
+     points), in fp32 and in bf16, and check that K2 and the chain are
+     bitwise reproducible and that the chain alone writes the deltas K2
+     returns;
   3. the NeRF path: `train_nerf.train` on the lego recipe (1024 rays, 64+128
      samples, full-width NeRF) for 30 iterations, 10 of them start-up, on the
-     synthetic Blender scene; both kernels must be launched twice per step.
-     Its last 20 steps are one timed window (CUDA events): ms/step and
-     rays/s;
+     synthetic Blender scene; both kernels, K2's delta chain and its split-K
+     pass must be launched twice per step.  Its last 20 steps are one timed
+     window (CUDA events): ms/step and rays/s;
   4. the same run again with torch.profiler (device activity only) on for
      its timed window: the device's busy time, the window's wall time and
      idle share, and the device time by kernel, all from that one window
-     (the profiler's own host cost shows as the gap to phase 3's ms/step);
-  5. K1 and K2 per launch at both shapes beside the plain version and the
-     least time the card could take;
+     (the profiler's own host cost shows as the gap to phase 3's ms/step),
+     the bf16 per-tile kernels (K1's, K2's delta chain) and the split-K pass
+     by name in ms per step;
+  5. K1, K2 and K2's delta chain alone per launch at both shapes beside the
+     plain version and the least time the card could take;
 The rest of the fused NeRF MLP (K3, K6, K5, K4):
   6. hold K3 and K6 against their plain version at both shapes and at the
      roofline path's 262,144 points, fp32 and bf16, with K1's output gates;
@@ -70,7 +76,8 @@ pi-GAN (K7, K8):
      yardstick the port never calls: cuBLAS, one torch.mm (or column sum)
      per task.
 The split-K pass's launches are counted over every path: 2 per NeRF step
-(K2's), 1 per K5 chunk, 1 per K7 chunk.
+(K2's), 1 per K5 chunk, 1 per K7 chunk; the delta chain's: 2 per NeRF step
+(K2's), 1 per bf16 K5 chunk.
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 
@@ -187,12 +194,49 @@ def check_kernels(torch, K, n):
         if not ok:
             raise SystemExit("K2 disagrees with its plain version or is not "
                              "reproducible")
+        d_err = check_deltas(torch, K, wk, dy, acts_k, bf16)
         if bf16:
             report = {"nerf_mlp_fwd_save": out_err,
-                      "nerf_mlp_bwd_saved": max_abs}
+                      "nerf_mlp_bwd_saved": max_abs,
+                      "nerf_mlp_deltas": d_err}
         del acts_k, acts_p, g_k, g_k2, g_p
         torch.cuda.synchronize()
     return report
+
+
+def check_deltas(torch, K, wk, dy, acts, bf16):
+    """K2's delta chain alone against its plain version on the same saved
+    activations, per delta slot: fp32 max|err| <= 1e-4 of max|ref|, bf16
+    relative Frobenius <= 5e-2 (K2's gates); bitwise repeat, and bitwise
+    equal to the deltas K2's own launch returns (dh9, dh5, dh0).  Returns
+    max |kernel - plain|."""
+    d_k = K.nerf_mlp_deltas(wk, dy, acts, bf16)
+    d_k2 = K.nerf_mlp_deltas(wk, dy, acts, bf16)
+    dh2 = K.nerf_mlp_bwd_saved(wk, dy, acts, bf16)[1]
+    d_p = K.nerf_mlp_deltas_plain(wk, dy, acts, bf16).float()
+    torch.cuda.synchronize()
+    worst, key = -1.0, None
+    for name, (o0, o1) in K.DELTA_OFFS.items():
+        a, b = d_k[:, o0:o1].float(), d_p[:, o0:o1]
+        err = float((a - b).abs().max())
+        r = (rel_frob(a, b) if bf16 and float(b.norm()) > 0
+             else err / max(float(b.abs().max()), 1e-30))
+        if r > worst:
+            worst, key = r, name
+    max_abs = float((d_k.float() - d_p).abs().max())
+    same = torch.equal(d_k, d_k2) and all(
+        torch.equal(t, d_k[:, K.DELTA_OFFS[n][0]:K.DELTA_OFFS[n][1]])
+        for t, n in zip(dh2, ("dh9", "dh5", "dh0")))
+    ok = same and worst <= (5e-2 if bf16 else 1e-4)
+    print(f"  K2's delta chain alone bf16={bf16}: worst "
+          f"{'rel frob' if bf16 else 'err/max'} {worst:.3e} at {key}, "
+          f"max|err| {max_abs:.3e}, bitwise repeat and == K2's deltas {same} "
+          f"-> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("K2's delta chain disagrees with its plain version, "
+                         "is not reproducible or differs from K2's")
+    del d_k, d_k2, d_p, dh2
+    return max_abs
 
 
 def check_fwd(torch, K, n):
@@ -330,6 +374,8 @@ FILM_ROWS = FILM_B * FILM_COARSE_P   # K7's rows at the coarse shape
 FILM_ODD = (3, 320)
 # K7's and K8's bf16 per-tile kernels (csrc/film_mlp.cu)
 TC_KERNELS = ("film_bwd_delta_tc_kernel", "film_fwd_tc_kernel")
+# K1's (K3's, K6's) and K2's delta chain's (csrc/nerf_mlp.cu)
+NERF_TC_KERNELS = ("nerf_fwd_tc_kernel", "nerf_bwd_delta_tc_kernel")
 
 
 def film_inputs(torch, FK, n_img, n_pts, seed=0):
@@ -568,6 +614,10 @@ def time_ms(torch, fn, reps):
     return statistics.median(ts)
 
 
+# the activation columns K2's delta chain reads: h0..h7 and h9
+DELTA_ACT_COLS = 8 * 256 + 128
+
+
 def bounds(K, n, w):
     """{kernel: {bound_ms, bound_by}}: the least time for one launch's work
     on n points, the larger of its bytes (each input read once, each output
@@ -576,6 +626,10 @@ def bounds(K, n, w):
     wbytes = sum(t.numel() * t.element_size() for t in w)
     pe_wbytes = sum(t.numel() * t.element_size() for k, t in zip(K.PACK_KEYS, w)
                     if k in ("W0", "W5a", "W9b"))
+    chain_wbytes = sum(t.numel() * t.element_size()
+                       for k, t in zip(K.PACK_KEYS, w)
+                       if k in {s[0] for s in K.BWD_SCHEDULE}
+                       | {"Ws", "bs", "Wr", "br"})
     macs = K.macs_per_point()
     row, act = K.IN_PAD * 4, K.ACT_PAD * 2    # x, out, dy, dx: 32 B a row
     dh = K.PE_DELTA_W * 2
@@ -588,6 +642,9 @@ def bounds(K, n, w):
         "nerf_mlp_fwd_pipelined": (n * 2 * row + wbytes, macs["fwd"]),
         "nerf_mlp_bwd": (n * (2 * row + dh) + wbytes + grads, macs["bwd"]),
         "nerf_mlp_dx": (n * (2 * row + dh) + pe_wbytes, macs["dx"]),
+        # reads h0..h7, h9 (masks, heads) and dy; writes every delta
+        "nerf_mlp_deltas": (n * (row + DELTA_ACT_COLS * 2 + K.DELTA_W * 2)
+                            + chain_wbytes, macs["deltas"]),
     }
     out = {}
     for name, (b, m) in work.items():
@@ -612,6 +669,9 @@ def time_kernels(torch, K, names, n, reps):
         "nerf_mlp_bwd_saved": (
             lambda: K.nerf_mlp_bwd_saved(wk, dy, acts, True),
             lambda: K.nerf_mlp_bwd_saved_plain(wk, dy, acts, True)),
+        "nerf_mlp_deltas": (
+            lambda: K.nerf_mlp_deltas(wk, dy, acts, True),
+            lambda: K.nerf_mlp_deltas_plain(wk, dy, acts, True)),
         "nerf_mlp_fwd": (lambda: K.nerf_mlp_fwd(x, wk, True),
                          lambda: K.nerf_mlp_fwd_plain(x, wk, True)),
         "nerf_mlp_fwd_pipelined": (
@@ -681,12 +741,13 @@ def dw_launches():
 
 def main_path(torch, K, iterations, startup, timed):
     """The main path with every launch counter set to 0 just before it and
-    read just after; K1 and K2 and K2's split-K pass must run twice per
-    step, K3-K6 never."""
+    read just after; K1 and K2, K2's delta chain and its split-K pass must
+    run twice per step, K3-K6 never."""
     reset_counts()
     ms, batch, log, ckpt, png = run_train(torch, iterations, startup, timed)
     launches = {k.__name__: k.launches for k in K.KERNELS}
     launches["dw_splitk"] = dw_launches()
+    launches["nerf_mlp_deltas"] = K.nerf_mlp_deltas.launches
     losses = log["loss"]
     rays = batch / (ms / 1e3)
     print(f"  losses first/last {losses[0]:.5f}/{losses[-1]:.5f}, launches "
@@ -698,7 +759,8 @@ def main_path(torch, K, iterations, startup, timed):
             and launches == {
                 **{k.__name__: 2 * iterations if k in (
                     K.nerf_mlp_fwd_save, K.nerf_mlp_bwd_saved) else 0
-                   for k in K.KERNELS}, "dw_splitk": 2 * iterations}
+                   for k in K.KERNELS}, "dw_splitk": 2 * iterations,
+                "nerf_mlp_deltas": 2 * iterations}
             and ckpt and png):
         raise SystemExit("main path check failed")
     return launches, ms, rays
@@ -799,15 +861,29 @@ def kernel_by_name(by_name, key, timed):
             "ms_per_launch": ms / n if n else None}
 
 
+# The NeRF step's kernels reported by name from its profile: K1's bf16
+# per-tile kernel, K2's delta chain and K2's split-K pass.
+NERF_PROFILED = ("nerf_fwd_tc_kernel", "nerf_bwd_delta_tc_kernel",
+                 "dw_splitk_tc_kernel")
+
+
 def profiled_window(torch, iterations, startup, timed):
     """The same train run with torch.profiler (device activity only) on for
-    the timed window: busy, wall and idle share of that one window."""
+    the timed window: busy, wall and idle share of that one window, and the
+    NERF_PROFILED kernels' device time per step."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CUDA])
     ms = run_train(torch, iterations, startup, timed, window=prof)[0]
-    busy, idle, _ = profile_report(prof, timed, ms, "step")
-    return ms, busy, idle
+    busy, idle, by_name = profile_report(prof, timed, ms, "step")
+    named = {}
+    for key in NERF_PROFILED:
+        named[key] = d = kernel_by_name(by_name, key, timed)
+        print(f"  {key}: {d['ms_per_iteration']:.3f} ms/step in "
+              f"{d['launches_per_iteration']:g} launches", flush=True)
+        if not d["launches_per_iteration"]:
+            raise SystemExit(f"{key} not seen in the NeRF profile")
+    return ms, busy, idle, named
 
 
 # The fp32 CUDA-core peak of an H100 SXM (NVIDIA data sheet), for the
@@ -961,9 +1037,9 @@ def cuda_tool(name):
     return None
 
 
-def sass_of_film(build, lib_path):
-    """SASS of the built FiLM library: cuobjdump -sass on it, or nvdisasm
-    on a cubin of the same source and flags."""
+def sass_of(build, name, lib_path):
+    """SASS of the built library of csrc/<name>.cu: cuobjdump -sass on it,
+    or nvdisasm on a cubin of the same source and flags."""
     cuobjdump = cuda_tool("cuobjdump")
     if cuobjdump:
         return "cuobjdump", subprocess.run(
@@ -975,40 +1051,58 @@ def sass_of_film(build, lib_path):
     flags = [f for f in build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "film_mlp.cubin")
+        cubin = os.path.join(tmp, f"{name}.cubin")
         subprocess.run([build.nvcc_path(), *flags, "-cubin", "-o", cubin,
-                        os.path.join(build.CSRC, "film_mlp.cu")], check=True,
+                        os.path.join(build.CSRC, f"{name}.cu")], check=True,
                        capture_output=True, timeout=600)
         return "nvdisasm", subprocess.run(
             [nvdisasm, cubin], capture_output=True, text=True, check=True,
             timeout=300).stdout
 
 
-def check_sass(build, lib_path):
-    """Fails unless each of TC_KERNELS has HGMMA (wgmma) and no HMMA (WMMA
-    or mma.sync) in its SASS; returns {kernel: (HGMMA count, HMMA count)}."""
+def sass_counts(sass, kernels):
+    """({kernel: [HGMMA, HMMA]} over the functions whose names contain one
+    of `kernels`, the HMMA count over every function)."""
     import re
-    tool, sass = sass_of_film(build, lib_path)
-    counts, cur = {}, None
+    counts, cur, hmma_all = {}, None, 0
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)|\.text\.([^\s,:]+)", line)
         if m:
             name = m.group(1) or m.group(2)
-            cur = next((k for k in TC_KERNELS if k in name), None)
+            cur = next((k for k in kernels if k in name), None)
             if cur:
                 counts.setdefault(cur, [0, 0])
             continue
+        hmma = len(re.findall(r"\bHMMA\b", line))
+        hmma_all += hmma
         if cur:
             counts[cur][0] += len(re.findall(r"\bHGMMA\b", line))
-            counts[cur][1] += len(re.findall(r"\bHMMA\b", line))
-    ok = (set(counts) == set(TC_KERNELS)
-          and all(g > 0 and h == 0 for g, h in counts.values()))
-    print(f"  SASS ({tool}): " + "; ".join(
-        f"{k} HGMMA {g}, HMMA {h}" for k, (g, h) in counts.items())
-        + f" -> {'ok' if ok else 'FAIL'}", flush=True)
+            counts[cur][1] += hmma
+    return counts, hmma_all
+
+
+def check_sass(build, libs):
+    """Fails unless each bf16 per-tile kernel (TC_KERNELS of the FiLM
+    library, NERF_TC_KERNELS of the NeRF one) has HGMMA (wgmma) and no HMMA
+    (WMMA or mma.sync) in its SASS, and the NeRF library has no HMMA at
+    all; returns {kernel: (HGMMA count, HMMA count)}."""
+    out, ok = {}, True
+    for name, kernels in (("film_mlp", TC_KERNELS),
+                          ("nerf_mlp", NERF_TC_KERNELS)):
+        tool, sass = sass_of(build, name, libs[name])
+        counts, hmma_all = sass_counts(sass, kernels)
+        good = (set(counts) == set(kernels)
+                and all(g > 0 and h == 0 for g, h in counts.values())
+                and (name == "film_mlp" or hmma_all == 0))
+        ok = ok and good
+        print(f"  SASS of {name} ({tool}): " + "; ".join(
+            f"{k} HGMMA {g}, HMMA {h}" for k, (g, h) in counts.items())
+            + f"; HMMA in the whole library {hmma_all} -> "
+            f"{'ok' if good else 'FAIL'}", flush=True)
+        out.update({k: tuple(v) for k, v in counts.items()})
     if not ok:
-        raise SystemExit("the bf16 FiLM kernels are not on wgmma")
-    return {k: tuple(v) for k, v in counts.items()}
+        raise SystemExit("the bf16 per-tile kernels are not on wgmma")
+    return out
 
 
 def odd_shape_layout(FK, n_img, n_pts):
@@ -1053,7 +1147,8 @@ def main() -> int:
     libs = build.load_all(["nerf_mlp", "film_mlp"])
     print(f"  built {', '.join(os.path.basename(l._name) for l in libs)} "
           f"({time.perf_counter() - t0:.1f} s, in parallel)", flush=True)
-    sass = check_sass(build, libs[1]._name)
+    sass = check_sass(build, {"nerf_mlp": libs[0]._name,
+                              "film_mlp": libs[1]._name})
     torch.cuda.synchronize()
     summary, kernels = {}, []
 
@@ -1073,11 +1168,11 @@ def main() -> int:
     torch.cuda.synchronize()
 
     phase("profile: the same train run, torch.profiler on for its window")
-    prof_ms, busy, idle = profiled_window(torch, 30, 10, 20)
+    prof_ms, busy, idle, named = profiled_window(torch, 30, 10, 20)
     torch.cuda.synchronize()
 
-    phase("K1/K2 timings (bf16, CUDA events, median)")
-    k12 = ("nerf_mlp_fwd_save", "nerf_mlp_bwd_saved")
+    phase("K1/K2 and K2's delta chain timings (bf16, CUDA events, median)")
+    k12 = ("nerf_mlp_fwd_save", "nerf_mlp_bwd_saved", "nerf_mlp_deltas")
     times = {}
     for label, n in (("coarse", COARSE_N), ("fine", FINE_N)):
         times[label] = t = time_kernels(torch, K, k12, n, 25)
@@ -1088,15 +1183,25 @@ def main() -> int:
         torch.cuda.synchronize()
     src = "msra_practice_project_tpu_torch/ops/kernels/csrc/nerf_mlp.cu"
     pallas = "msra_practice_project_tpu/ops/pallas/nerf_mlp.py"
-    for name, line in (("nerf_mlp_fwd_save", 336), ("nerf_mlp_bwd_saved", 353)):
-        kernels.append(kernel_entry(
+    for name, line, tc in (
+            ("nerf_mlp_fwd_save", 336, NERF_TC_KERNELS[0]),
+            ("nerf_mlp_bwd_saved", 353, None),
+            ("nerf_mlp_deltas", 353, NERF_TC_KERNELS[1])):
+        entry = kernel_entry(
             name, src, f"{pallas}:{line}", launches[name], errs[name],
             times["coarse"][name], times["fine"][name],
             f"N={COARSE_N} (coarse pass)", f"N={FINE_N}",
-            "train_nerf, lego recipe"))
+            "train_nerf, lego recipe" + (" (inside K2)"
+                                         if name == "nerf_mlp_deltas" else ""))
+        if tc:
+            entry["sass"] = {tc: {"HGMMA": sass[tc][0], "HMMA": sass[tc][1]}}
+            entry["profiled"] = {tc: named[tc]}
+        kernels.append(entry)
     summary.update(nerf_step_ms=step_ms, nerf_rays_per_s=rays,
                    nerf_profiled_step_ms=prof_ms, nerf_device_busy_ms=busy,
-                   nerf_profiled_idle_share=idle)
+                   nerf_profiled_idle_share=idle,
+                   **{f"nerf_profiled_{k}_ms_per_step": v["ms_per_iteration"]
+                      for k, v in named.items()})
 
     # the two passes' shapes and the roofline path's own (in bf16 K5 runs
     # that one in two chunks)
@@ -1248,6 +1353,7 @@ def main() -> int:
         f"N={FINE_N}", "train_nerf, lego recipe (inside K2)")
     entry["film"] = {"shape": f"K7's tasks, B={FILM_B} P={FILM_COARSE_P}",
                      **dtimes[("film", FILM_ROWS)]}
+    entry["profiled"] = {"dw_splitk_tc_kernel": named["dw_splitk_tc_kernel"]}
     entry["launches_by_path"] = {
         "nerf_step": launches["dw_splitk"],
         "roofline": rl_launches["dw_splitk"],

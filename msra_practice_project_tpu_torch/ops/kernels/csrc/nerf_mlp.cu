@@ -9,14 +9,10 @@
 //    input and writes 5,120 B of bf16 activations + 32 B of output: at the
 //    train step's 65,536 / 196,608 points that is ~0.10 / ~0.30 ms of HBM
 //    traffic at 3.35 TB/s against ~0.08 / ~0.24 ms of bf16 tensor-core work
-//    at 989 TFLOP/s: memory-bound.  Design: one CTA per tile of 64 points
-//    (32 in the fp32 check mode) keeps the tile's activations in shared
-//    memory (bf16, ping-pong between two [64, 256] buffers), streams each
-//    layer's weights through shared memory in 32-row slices (cp.async double
-//    buffer, the weights stay L2-resident across CTAs), runs the matmuls on
-//    the tensor cores (WMMA bf16, fp32 accumulate) and writes each
-//    activation to the spill once, from the epilogue.  The skip and view-dir
-//    concats are two products into one accumulator.  The PE is computed
+//    at 989 TFLOP/s: memory-bound.  bf16: nerf_fwd_tc_kernel<true> (section
+//    "bf16: the forward and the delta chain on wgmma"): two 64-point tiles
+//    per CTA on one TMA weight stream, wgmma, register epilogues, each
+//    activation from shared memory to the spill by TMA.  The PE is computed
 //    directly with accurate sinf/cosf (no fast math: its arguments reach
 //    ~3,000 rad).
 //
@@ -29,14 +25,8 @@
 // K6 `nerf_mlp_fwd` with pipe = 1 replaces _fwd_kernel_pipelined (two
 //    half-tile chains whose stages the TPU interleaves in program order, so
 //    its VLIW bundles co-issue one chain's epilogue under the other's
-//    matmuls).  Here the CTA's two warpgroups each own half its rows, with
-//    their own weight double buffer and named barrier, and the second starts
-//    one stage (the PE) behind the first: one group's bias/relu/cast
-//    epilogue runs while the other group's matmuls issue, as
-//    FlashAttention-3 overlaps softmax with GEMM.  Every output element is
-//    computed as K3 computes it, so K6 is bitwise equal to K3.  Shared
-//    memory: 213 KB at 64 rows (bf16); the fp32 check mode runs CTAs of 16
-//    rows (32 rows with a second weight buffer would need 242 KB).
+//    matmuls).  bf16: K3's kernel, whose two warpgroups (one tile each, on
+//    one weight stream) are those two chains, so K6 is K3, bitwise.
 //
 // K2 `nerf_mlp_bwd_saved` replaces _bwd_saved_kernel + _grad_body
 //    (launched by _fused_backward_saved).  Bound on an H100: the delta chain
@@ -47,7 +37,9 @@
 //    run.  Design, three deterministic passes:
 //      (a) per tile of points: rebuild the sigma/rgb heads from the saved
 //          h7/h9, run the dh = (delta W^T) * relu_mask chain on the tensor
-//          cores and write every layer's delta (bf16) to a workspace;
+//          cores and write every layer's delta (bf16) to a workspace
+//          (`nerf_mlp_deltas` alone; bf16: nerf_bwd_delta_tc_kernel, ~0.18 /
+//          ~0.54 ms of bytes at 65,536 / 196,608 points);
 //      (b) split-K dW = act^T delta (and db = 1^T delta) of the 26
 //          parameters (tile_mm.cuh: TMA ring, wgmma, CTAs of up to 128 x
 //          256 outputs, db folded into the weight task that reads the same
@@ -61,14 +53,14 @@
 //    _fused_backward): the backward that recomputes the forward.  Bound:
 //    1,741,312 MACs per point, ~0.23 / ~0.69 ms at 65,536 / 196,608 points,
 //    by operations.  A tile's ten activations do not fit in shared memory,
-//    so per chunk of points one kernel per tile recomputes the forward with
-//    K1's code (activations to a workspace) and then runs K2's delta chain
-//    (deltas to a workspace), as K7 does in film_mlp.cu; then K2's split-K
-//    pass covers the chunk.  Chunks hold whole splits of K2's split-K over
-//    all the points (the wrapper bounds them to 2 GiB of workspace), and one
-//    fixed-order sum closes: dW/db are bitwise equal to K1 -> K2's on the
-//    same inputs, whatever the chunking.  When asked, the tile also copies
-//    the deltas K4 reads (dh9, dh5, dh0) out of the chunk's workspace.
+//    so per chunk of points K1's forward kernel writes them to a workspace
+//    and K2's delta kernel runs the chain from it (deltas to a workspace;
+//    fp32: one kernel per tile, bwd_recompute_kernel, does both); then K2's
+//    split-K pass covers the chunk.  Chunks hold whole splits of K2's
+//    split-K over all the points (the wrapper bounds them to 2 GiB of
+//    workspace), and one fixed-order sum closes: dW/db are bitwise equal to
+//    K1 -> K2's on the same inputs, whatever the chunking.  When asked, the
+//    deltas K4 reads (dh9, dh5, dh0) also go to a copy of their own.
 //
 // K4 `nerf_mlp_dx` replaces _grad_body's need_dx block: dx from the stored
 //    deltas of the layers that read the PEs (K2's workspace or K5's copy):
@@ -80,9 +72,11 @@
 //    bytes.  Its products run on the CUDA cores, each thread summing
 //    four columns for one point from 16-byte weight loads.
 //
-// bf16 = 0 is the fp32 check mode (fp32 operands, FMA on the CUDA cores).
-// Every launch goes on the caller's stream, allocates nothing and returns
-// the first CUDA error.
+// bf16 = 0 is the fp32 check mode (fp32 operands, FMA on the CUDA cores:
+// fwd_kernel, fwd_pipelined_kernel, bwd_delta_kernel, bwd_recompute_kernel,
+// one CTA per tile of 32 or 16 points, tile_mm.cuh's layer_mm).  Every
+// launch goes on the caller's stream, allocates nothing and returns the
+// first CUDA error.
 
 #include "tile_mm.cuh"
 
@@ -118,7 +112,7 @@ template <typename T> __host__ __device__ constexpr int ldd() {
 }
 
 // ---------------------------------------------------------------------------
-// The forward (K1, K3, K5's recompute, K6's two halves)
+// fp32: the forward (K1, K3, K5's recompute, K6's two halves)
 // ---------------------------------------------------------------------------
 
 // One group's view of the forward's shared buffers: its rows of C, of the
@@ -328,7 +322,7 @@ fwd_pipelined_kernel(const float* __restrict__ x, Params P,
 }
 
 // ---------------------------------------------------------------------------
-// The delta chain (K2 (a), and K5 after its recompute)
+// fp32: the delta chain (K2 (a), and K5 after its recompute)
 // ---------------------------------------------------------------------------
 
 // Backward epilogue: d = (C [+ dsig * Ws[:, 0]]) * (act > 0) -> T into the
@@ -605,6 +599,481 @@ dx_kernel(const float* __restrict__ x, Params P, const T* __restrict__ dh9,
 }
 
 // ---------------------------------------------------------------------------
+// bf16: the forward and the delta chain on wgmma, one weight stream per CTA
+// ---------------------------------------------------------------------------
+//
+// tile_mm.cuh's per-tile machinery (section "bf16 per-tile pass", shared
+// with film_mlp.cu): two consumer warpgroups, one 64-point tile each, on one
+// TMA ring of 32-row weight slices that a producer warpgroup fills; each
+// product is wgmma.m64n256k16 with a K-major A in shared memory; the
+// epilogues run on the accumulator registers, overwrite A in place, and A
+// goes to the spill or the delta workspace by TMA.
+//
+// nerf_fwd_tc_kernel (K1 with SPILL; K3, K6 and K5's recompute without)
+// streams the forward stack [W0 | W1..W4 | W5a | W5b | W6 | W7 | W8 | W9a |
+// W9b] (ops/kernels/nerf_mlp.py::weight_stacks: 2,464 rows, W9a and W9b
+// zero-padded to 256 columns so that every stage is four boxes, ~6% more
+// tensor-core work): products of K = 64 (W0, W5a), 256 and 32 (W9b).  Each
+// warpgroup computes its tile's PEs on the CUDA cores (accurate sinf/cosf:
+// the arguments reach ~3,000 rad) into two resident K-major blocks (pe_p,
+// 64 columns; pe_d, 32 columns of a block) and, with SPILL, into spill
+// columns 0..95.  h5 and h9 are two products into one register set (pe_p
+// W5a + h4 W5b, hd W9a + pe_d W9b).  Epilogue: bias + relu (hd linear) ->
+// bf16 into A; with SPILL, A -> the spill by TMA.  sigma comes from h7's
+// epilogue and rgb from h9's (each lane's partial sums over its columns,
+// then a shuffle across the quad).  K6's two chains are the two
+// warpgroups on one weight stream.
+//
+// nerf_bwd_delta_tc_kernel (K2 (a), and K5's chain after its recompute)
+// streams the backward stack [W9a^T, W8^T, W7^T, W6^T, W5b^T, W4^T, ...,
+// W1^T] (2,176 rows): dhd (K = 128), then eight products of K = 256.  The
+// heads are rebuilt from the saved h9 and h7, staged by TMA (h9 into A's
+// blocks 2 and 3, h7 into the mask buffer); dr and dsig go to delta columns
+// 0..15, and dh9 = (dr Wr^T) (h9 > 0) is built on the CUDA cores into A.
+// Each epilogue adds dsig Ws^T (dh7), masks by h_{l-1} > 0 (read from the
+// mask buffer at the address it writes in A; dhd has no mask) and rounds to
+// bf16 into A, which goes to the delta workspace (dh9, dh5 and dh0 also to
+// K5's copy for K4) by TMA.  The next mask is loaded by TMA into the mask
+// buffer while the next product runs.  No atomics: two launches are bitwise
+// equal.
+//
+// What bounds them on an H100: bytes.  The delta chain moves 9,280 B per
+// point (reads h0..h7 and h9 for the masks and heads and dy; writes 2,448
+// delta columns): ~0.18 ms at 65,536 points at 3.35 TB/s against ~0.07 ms
+// of tensor-core work; K1 writes 5,120 B of spill per point (~0.10 ms).
+// Their epilogues are a few instructions per element (no sine).
+
+constexpr int NF_STAGES = 77;  // forward stack: 2,464 rows of KS
+constexpr int NB_STAGES = 68;  // backward stack: 2,176 rows of KS
+// The epilogues walk the accumulators in blocks of TC_JB steps of j
+// (tile_mm.cuh's acc_block): of blocks of 2, 4, 8 and 16, 8 ran K1 and K3
+// fastest (tools/torch_nerf_probe.py).
+constexpr int TC_JB = 8;
+// forward: per warpgroup the PE blocks (pe_p, pe_d), then the heads [64][4]
+// (rgb, sigma; fp32)
+constexpr int NF_PE = 2 * TC_A_BLOCK, NF_HEAD = TC_TILE * 4;
+constexpr int NF_EXTRA = 2 * NF_PE + 2 * NF_HEAD * 4;
+constexpr size_t NF_SMEM = tc_smem(NF_EXTRA);
+static_assert(NF_SMEM <= 232448, "the NeRF forward exceeds shared memory");
+// backward: per warpgroup a mask buffer (A's layout), then the heads'
+// deltas [64] x (dr0, dr1, dr2, dsig) in bf16, then a mask barrier each
+constexpr int NB_HD = TC_TILE * 8;
+constexpr int NB_EXTRA = 2 * TC_A_BYTES + 2 * NB_HD + 2 * 8;
+constexpr size_t NB_SMEM = tc_smem(NB_EXTRA);
+static_assert(NB_SMEM <= 232448, "the NeRF delta chain exceeds shared memory");
+
+// The tile's positional encodings (x rows at x), interleaved [sin_f(3),
+// cos_f(3)] per frequency f and zero-padded as fwd_pe computes them, into
+// the warpgroup's PE blocks (pe_p at pe, pe_d at pe + TC_A_BLOCK) and, with
+// SPILL, spill columns 0..95; the spill's pad columns 2528..2559 are
+// zeroed.  Ends with the blocks visible to the wgmma.
+template <bool SPILL>
+__device__ void tc_pe(const TcCtx& c, const float* x, unsigned char* pe,
+                      bf16_t* spill) {
+  constexpr int NQ = 3 * (10 + 4);  // (frequency, dimension) of pos, dir
+  for (int i = c.tid; i < TC_TILE * NQ; i += TC_WG) {
+    const int r = i / NQ, q = i % NQ, fq = q / 3, d = q % 3;
+    const bool pos = fq < 10;
+    const int f = pos ? fq : fq - 10, col = 6 * f + d;
+    const float a = x[r * IN_PAD + (pos ? d : 3 + d)] * (float)(1 << f);
+    const bf16_t sv = __float2bfloat16(sinf(a)), cv = __float2bfloat16(cosf(a));
+    unsigned char* blk = pe + (pos ? 0 : TC_A_BLOCK);
+    *reinterpret_cast<bf16_t*>(blk + swizzled(r, col)) = sv;
+    *reinterpret_cast<bf16_t*>(blk + swizzled(r, col + 3)) = cv;
+    if constexpr (SPILL) {
+      bf16_t* sp = spill + (size_t)r * ACT_PAD + (pos ? 0 : PE_POS) + col;
+      sp[0] = sv;
+      sp[3] = cv;
+    }
+  }
+  // the padding the products read: pe_p columns 60..63, pe_d 24..31
+  for (int i = c.tid; i < TC_TILE * 12; i += TC_WG) {
+    const int r = i / 12, j = i % 12;
+    const bool pos = j < 4;
+    const int col = pos ? 60 + j : 20 + j;
+    const bf16_t z = __float2bfloat16(0.f);
+    *reinterpret_cast<bf16_t*>(pe + (pos ? 0 : TC_A_BLOCK) + swizzled(r, col))
+        = z;
+    if constexpr (SPILL)
+      spill[(size_t)r * ACT_PAD + (pos ? 0 : PE_POS) + col] = z;
+  }
+  if constexpr (SPILL) {
+    for (int i = c.tid; i < TC_TILE * 4; i += TC_WG)
+      *reinterpret_cast<uint4*>(spill + (size_t)(i / 4) * ACT_PAD + ACT_W
+                                + (i % 4) * 8) = make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async();
+  wg_sync(c);
+}
+
+// What a forward epilogue does besides bias and relu (compile-time, so the
+// unrolled walk has no branches to schedule around).
+enum { EPI_LINEAR = 1, EPI_SIGMA = 2, EPI_RGB = 4 };
+
+// Forward epilogue on the accumulators: v = acc + b, relu unless
+// EPI_LINEAR, -> bf16 into A (columns 0..127 with EPI_RGB: h9); sigma =
+// relu(h7 Ws + bs) (EPI_SIGMA) or rgb = sigmoid(h9 Wr + br) (EPI_RGB) from
+// the rounded values into the heads (c.scr); with SPILL, A -> the spill's
+// columns col0.. by TMA.  Ends with the warpgroup synchronised and A
+// visible to the next wgmma.
+template <int KIND, bool SPILL>
+__device__ __forceinline__ void tc_fwd_epi(const TcCtx& c, const float* acc,
+                                           const float* bias,
+                                           const bf16_t* wh, const float* bh,
+                                           const CUtensorMap* amap,
+                                           int col0) {
+  constexpr bool RELU = !(KIND & EPI_LINEAR);
+  constexpr int NH = (KIND & EPI_RGB) ? 3 : ((KIND & EPI_SIGMA) ? 1 : 0);
+  constexpr int NCOL = (KIND & EPI_RGB) ? RGB_HID : HID;
+  static_assert(NCOL / 8 % TC_JB == 0, "whole blocks of the walk");
+  const int r0 = c.warp * 16 + c.lane / 4;
+  float hs[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll 1
+  for (int jb = 0; jb < NCOL / 8; jb += TC_JB) {
+    float a[4 * TC_JB];
+    acc_block<TC_JB>(acc, jb, a);
+#pragma unroll
+    for (int jj = 0; jj < TC_JB; ++jj) {
+      const int col = 8 * (jb + jj) + 2 * (c.lane % 4);
+      const float2 bc = ld2(bias + col);
+      float whc[2][3];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+        for (int q = 0; q < NH; ++q)
+          whc[cc][q] = __bfloat162float(__ldg(wh + (col + cc) * OUT_PAD + q));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = a[4 * jj + 2 * h] + bc.x, v1 = a[4 * jj + 2 * h + 1] + bc.y;
+        if constexpr (RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const __nv_bfloat162 hb = __floats2bfloat162_rn(v0, v1);
+        stb2(c.ag + a_offset(r0 + 8 * h, col), hb);
+        if constexpr (NH > 0) {
+          const float2 hf = __bfloat1622float2(hb);
+#pragma unroll
+          for (int q = 0; q < NH; ++q)
+            hs[h][q] += hf.x * whc[0][q] + hf.y * whc[1][q];
+        }
+      }
+    }
+  }
+  if constexpr (NH > 0) {
+    // a row's columns lie in the 4 lanes that share lane / 4
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < NH; ++q)
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1)
+          hs[h][q] += __shfl_xor_sync(0xffffffffu, hs[h][q], o);
+    if (c.lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* hd = c.scr + (r0 + 8 * h) * 4;
+        if constexpr (NH == 1) {
+          hd[3] = fmaxf(hs[h][0] + bh[0], 0.f);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            hd[q] = 1.f / (1.f + expf(-(hs[h][q] + bh[q])));
+        }
+      }
+    }
+  }
+  fence_proxy_async();
+  wg_sync(c);
+  if constexpr (SPILL) tc_store_a(c, amap, col0, NCOL / DW_BOX);
+}
+
+// K1 (SPILL) and K3 / K6 / K5's recompute, bf16: grid (tiles + 1) / 2; x
+// [n, 8]; out [n, 8] unless null; with SPILL the spill [n, ACT_PAD] (acts,
+// and amap over it).
+template <bool SPILL>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+nerf_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                   const __grid_constant__ CUtensorMap amap,
+                   const float* __restrict__ x, Params P,
+                   float* __restrict__ out, bf16_t* __restrict__ acts,
+                   int n_tiles) {
+  extern __shared__ unsigned char tc_smem_raw[];
+  TcCtx c = tc_setup(tc_smem_raw, NF_EXTRA);
+  if (threadIdx.x >= TC_CONSUMERS) {
+    tc_regs_producer();
+    if (threadIdx.x == TC_CONSUMERS)
+      tc_produce(c.ring, c.bars, &wmap, NF_STAGES, 0);
+    return;
+  }
+  tc_regs_consumer();
+  const int tile = 2 * blockIdx.x + c.wg;
+  if (tile >= n_tiles) {
+    tc_idle(c, NF_STAGES);
+    return;
+  }
+  auto W = [&](int i) { return reinterpret_cast<const bf16_t*>(P.p[i]); };
+  auto Bv = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
+  c.row0 = tile * TC_TILE;
+  const size_t row0 = (size_t)c.row0;
+  const uint32_t pe_p = tc_ext(c) + c.wg * NF_PE, pe_d = pe_p + TC_A_BLOCK;
+  c.scr = reinterpret_cast<float*>(tc_ext_ptr(c) + 2 * NF_PE) + c.wg * NF_HEAD;
+  tc_pe<SPILL>(c, x + row0 * IN_PAD, tc_ext_ptr(c) + c.wg * NF_PE,
+               SPILL ? acts + row0 * ACT_PAD : nullptr);
+
+  float acc[HID / 2];
+  tc_product<PE_POS / KS>(c, acc, pe_p, 0);  // h0 = relu(pe_p W0 + b0)
+  tc_fwd_epi<0, SPILL>(c, acc, Bv(B0), nullptr, nullptr, &amap, A_H0);
+  for (int l = 1; l < 5; ++l) {  // h1..h4
+    tc_product<HID / KS>(c, acc, c.a, 0);
+    tc_fwd_epi<0, SPILL>(c, acc, Bv(B0 + 2 * l), nullptr, nullptr, &amap,
+                         A_H0 + l * HID);
+  }
+  tc_product<PE_POS / KS>(c, acc, pe_p, 0);  // h5 = relu(pe_p W5a + h4 W5b
+  tc_product<HID / KS>(c, acc, c.a, 1);      //          + b5)
+  tc_fwd_epi<0, SPILL>(c, acc, Bv(B5), nullptr, nullptr, &amap,
+                       A_H0 + 5 * HID);
+  tc_product<HID / KS>(c, acc, c.a, 0);  // h6
+  tc_fwd_epi<0, SPILL>(c, acc, Bv(B6), nullptr, nullptr, &amap,
+                       A_H0 + 6 * HID);
+  tc_product<HID / KS>(c, acc, c.a, 0);  // h7, and sigma from it
+  tc_fwd_epi<EPI_SIGMA, SPILL>(c, acc, Bv(B7), W(WS), Bv(BS), &amap,
+                               A_H0 + 7 * HID);
+  tc_product<HID / KS>(c, acc, c.a, 0);  // hd = h7 W8 + b8 (linear)
+  tc_fwd_epi<EPI_LINEAR, SPILL>(c, acc, Bv(B8), nullptr, nullptr, &amap,
+                                A_HD);
+  tc_product<HID / KS>(c, acc, c.a, 0);  // h9 = relu(hd W9a + pe_d W9b + b9)
+  tc_product<PE_DIR / KS>(c, acc, pe_d, 1);
+  tc_fwd_epi<EPI_RGB, SPILL>(c, acc, Bv(B9), W(WR), Bv(BR), &amap, A_H9);
+  if (out) {  // the rows [rgb(3), sigma, 0, 0, 0, 0]
+    for (int i = c.tid; i < TC_TILE * OUT_PAD; i += TC_WG) {
+      const int r = i / OUT_PAD, q = i % OUT_PAD;
+      out[row0 * OUT_PAD + i] = q < 4 ? c.scr[r * 4 + q] : 0.f;
+    }
+  }
+  if (SPILL && c.tid == 0) bulk_wait<0>();  // the spill's TMA writes are done
+}
+
+// The heads rebuilt from the staged h7 (mask buffer) and h9 (A's blocks 2
+// and 3): sigma = relu(h7 Ws + bs), rgb = sigmoid(h9 Wr + br); dr = dy_rgb
+// rgb (1 - rgb) and dsig = dy_sigma (sigma > 0), rounded to bf16, into
+// delta columns 0..15 (dl, the tile's rows) and the scratch (dr0, dr1, dr2,
+// dsig per point).  One warp per point, a fixed butterfly reduction.
+__device__ void tc_heads(const TcCtx& c, const float* dy,
+                         const unsigned char* h7, const bf16_t* ws,
+                         const float* bs, const bf16_t* wr, const float* br,
+                         bf16_t* dl) {
+  __nv_bfloat162* hd = reinterpret_cast<__nv_bfloat162*>(c.scr);
+  for (int r = c.warp; r < TC_TILE; r += TC_WG / 32) {
+    float s7 = 0.f, s9[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < HID; k += 64) {
+      const int col = k + 2 * c.lane;
+      const float2 h = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(h7 + a_offset(r, col)));
+      s7 += h.x * __bfloat162float(__ldg(ws + col * OUT_PAD))
+            + h.y * __bfloat162float(__ldg(ws + (col + 1) * OUT_PAD));
+    }
+#pragma unroll
+    for (int k = 0; k < RGB_HID; k += 64) {
+      const int col = k + 2 * c.lane;
+      const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          c.ag + a_offset(r, RGB_HID + col)));
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        s9[q] += h.x * __bfloat162float(__ldg(wr + col * OUT_PAD + q))
+                 + h.y * __bfloat162float(__ldg(wr + (col + 1) * OUT_PAD + q));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s7 += __shfl_xor_sync(0xffffffffu, s7, o);
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        s9[q] += __shfl_xor_sync(0xffffffffu, s9[q], o);
+    }
+    if (c.lane == 0) {
+      const float* d = dy + (size_t)r * OUT_PAD;
+      bf16_t v[4];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float rgb = 1.f / (1.f + expf(-(s9[q] + br[q])));
+        v[q] = __float2bfloat16(
+            __fmul_rn(__fmul_rn(d[q], rgb), __fsub_rn(1.f, rgb)));
+      }
+      const float sg = fmaxf(s7 + bs[0], 0.f);
+      v[3] = __float2bfloat16(sg > 0.f ? d[3] : 0.f);
+      hd[2 * r] = __halves2bfloat162(v[0], v[1]);
+      hd[2 * r + 1] = __halves2bfloat162(v[2], v[3]);
+      const unsigned b01 = __bfloat16_as_ushort(v[0])
+                           | (unsigned)__bfloat16_as_ushort(v[1]) << 16;
+      uint4* row = reinterpret_cast<uint4*>(dl + (size_t)r * DELTA_W);
+      row[0] = make_uint4(b01, __bfloat16_as_ushort(v[2]), 0, 0);
+      row[1] = make_uint4(__bfloat16_as_ushort(v[3]), 0, 0, 0);
+    }
+  }
+  wg_sync(c);
+}
+
+// dh9 = (dr Wr^T) (h9 > 0) on the CUDA cores into A's blocks 0 and 1 (h9
+// in blocks 2 and 3).  Ends with A fenced and the warpgroup synchronised.
+__device__ void tc_dh9(const TcCtx& c, const bf16_t* wr) {
+  const __nv_bfloat162* hd = reinterpret_cast<const __nv_bfloat162*>(c.scr);
+  for (int i = c.tid; i < TC_TILE * RGB_HID / 2; i += TC_WG) {
+    const int r = i / (RGB_HID / 2), col = 2 * (i % (RGB_HID / 2));
+    const float2 d01 = __bfloat1622float2(hd[2 * r]);
+    const float d2 = __bfloat1622float2(hd[2 * r + 1]).x;
+    float s[2];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const bf16_t* w = wr + (col + cc) * OUT_PAD;
+      s[cc] = d01.x * __bfloat162float(__ldg(w))
+              + d01.y * __bfloat162float(__ldg(w + 1))
+              + d2 * __bfloat162float(__ldg(w + 2));
+    }
+    const float2 m = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        c.ag + a_offset(r, RGB_HID + col)));
+    stb2(c.ag + a_offset(r, col),
+         __floats2bfloat162_rn(m.x > 0.f ? s[0] : 0.f, m.y > 0.f ? s[1] : 0.f));
+  }
+  fence_proxy_async();
+  wg_sync(c);
+}
+
+// Backward epilogue on the accumulators: d = acc (+ dsig Ws[:, 0] with
+// DSIG), times (h > 0) with MASK (h the activation staged in the mask
+// buffer, read at the address d is written in A), -> bf16 into A.  Ends with
+// the warpgroup synchronised and A visible to the next wgmma and to TMA.
+template <bool MASK, bool DSIG>
+__device__ __forceinline__ void tc_bwd_epi(const TcCtx& c, const float* acc,
+                                           const unsigned char* mask,
+                                           const bf16_t* ws) {
+  const int r0 = c.warp * 16 + c.lane / 4;
+  const __nv_bfloat162* hd = reinterpret_cast<const __nv_bfloat162*>(c.scr);
+  float ds[2] = {0.f, 0.f};
+  if constexpr (DSIG) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ds[h] = __bfloat1622float2(hd[2 * (r0 + 8 * h) + 1]).y;
+  }
+#pragma unroll 1
+  for (int jb = 0; jb < HID / 8; jb += TC_JB) {
+    float a[4 * TC_JB];
+    acc_block<TC_JB>(acc, jb, a);
+#pragma unroll
+    for (int jj = 0; jj < TC_JB; ++jj) {
+      const int col = 8 * (jb + jj) + 2 * (c.lane % 4);
+      float2 w = {0.f, 0.f};
+      if constexpr (DSIG) {
+        w.x = __bfloat162float(__ldg(ws + col * OUT_PAD));
+        w.y = __bfloat162float(__ldg(ws + (col + 1) * OUT_PAD));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = a_offset(r0 + 8 * h, col);
+        float v0 = a[4 * jj + 2 * h], v1 = a[4 * jj + 2 * h + 1];
+        if constexpr (DSIG) {
+          v0 += ds[h] * w.x;
+          v1 += ds[h] * w.y;
+        }
+        if constexpr (MASK) {
+          const float2 m = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(mask + off));
+          v0 = m.x > 0.f ? v0 : 0.f;
+          v1 = m.y > 0.f ? v1 : 0.f;
+        }
+        stb2(c.ag + off, __floats2bfloat162_rn(v0, v1));
+      }
+    }
+  }
+  fence_proxy_async();
+  wg_sync(c);
+}
+
+// K2 (a) and K5's chain, bf16: grid (tiles + 1) / 2; dy [n, 8]; the spill
+// (amap, [n, ACT_PAD]) is read for the heads and the masks; the deltas
+// (deltas and dmap, [n, DELTA_W]) are written, columns 0..15 directly and
+// the rest by TMA; with pe_row0 >= 0, dh9 | dh5 | dh0 also go to K5's copy
+// (pmap, [*, PE_DW]) at rows pe_row0 + the tile's.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+nerf_bwd_delta_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap amap,
+                         const __grid_constant__ CUtensorMap dmap,
+                         const __grid_constant__ CUtensorMap pmap, Params P,
+                         const float* __restrict__ dy,
+                         bf16_t* __restrict__ deltas, int n_tiles,
+                         int pe_row0) {
+  extern __shared__ unsigned char tc_smem_raw[];
+  TcCtx c = tc_setup(tc_smem_raw, NB_EXTRA);
+  if (threadIdx.x >= TC_CONSUMERS) {
+    tc_regs_producer();
+    if (threadIdx.x == TC_CONSUMERS)
+      tc_produce(c.ring, c.bars, &wmap, NB_STAGES, 0);
+    return;
+  }
+  tc_regs_consumer();
+  const int tile = 2 * blockIdx.x + c.wg;
+  if (tile >= n_tiles) {
+    tc_idle(c, NB_STAGES);
+    return;
+  }
+  auto W = [&](int i) { return reinterpret_cast<const bf16_t*>(P.p[i]); };
+  auto Bv = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
+  c.row0 = tile * TC_TILE;
+  const size_t row0 = (size_t)c.row0;
+  const uint32_t mask = tc_ext(c) + c.wg * TC_A_BYTES;
+  const unsigned char* mask_g = tc_ext_ptr(c) + c.wg * TC_A_BYTES;
+  c.scr = reinterpret_cast<float*>(tc_ext_ptr(c) + 2 * TC_A_BYTES
+                                   + c.wg * NB_HD);
+  const uint32_t mbar = tc_ext(c) + 2 * TC_A_BYTES + 2 * NB_HD + 8 * c.wg;
+  const bool pe = pe_row0 >= 0;
+
+  // h9 into A's blocks 2, 3 and h7 into the mask buffer
+  if (c.tid == 0) {
+    mbar_init(mbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(mbar, 12 * DW_BOX_BYTES);
+    tc_load_tile(c.a + 2 * TC_A_BLOCK, &amap, A_H9, c.row0, 2, mbar);
+    tc_load_tile(mask, &amap, A_H0 + 7 * HID, c.row0, 4, mbar);
+  }
+  wg_sync(c);  // the barrier is initialised before anyone waits on it
+  mbar_wait(mbar, 0);
+  __syncwarp();  // the warp leaves the wait together (wgmma is .aligned)
+  int mph = 1;  // mask loads so far
+  tc_heads(c, dy + row0 * OUT_PAD, mask_g, W(WS), Bv(BS), W(WR), Bv(BR),
+           deltas + row0 * DELTA_W);
+  tc_dh9(c, W(WR));
+  tc_store_a(c, &dmap, D_DH9, RGB_HID / DW_BOX);
+  if (pe) tc_store_a(c, &pmap, 0, RGB_HID / DW_BOX, pe_row0);
+
+  float acc[HID / 2];
+  tc_product<RGB_HID / KS>(c, acc, c.a, 0);  // dhd = dh9 W9a^T (no mask)
+  tc_bwd_epi<false, false>(c, acc, mask_g, nullptr);
+  tc_store_a(c, &dmap, D_DHD);
+  tc_product<HID / KS>(c, acc, c.a, 0);  // dh7 = (dhd W8^T + dsig Ws^T)
+  tc_bwd_epi<true, true>(c, acc, mask_g, W(WS));  //   (h7 > 0)
+  for (int l = 7; l >= 1; --l) {
+    // A holds dh_l and the mask buffer's h_l has been read: h_{l-1} comes
+    // in while the next product runs
+    if (c.tid == 0) {
+      fence_proxy_async();
+      mbar_expect_tx(mbar, 8 * DW_BOX_BYTES);
+      tc_load_tile(mask, &amap, A_H0 + (l - 1) * HID, c.row0, 4, mbar);
+    }
+    tc_store_a(c, &dmap, D_DH7 + (7 - l) * HID);
+    if (pe && l == 5) tc_store_a(c, &pmap, RGB_HID, 4, pe_row0);
+    // dh_{l-1} = (dh_l W_l^T) (h_{l-1} > 0), W5b for l = 5
+    tc_product<HID / KS>(c, acc, c.a, 0);
+    mbar_wait(mbar, mph & 1);
+    __syncwarp();
+    ++mph;
+    tc_bwd_epi<true, false>(c, acc, mask_g, nullptr);
+  }
+  tc_store_a(c, &dmap, D_DH0);
+  if (pe) tc_store_a(c, &pmap, RGB_HID + HID, 4, pe_row0);
+  if (c.tid == 0) bulk_wait<0>();  // the workspaces' TMA writes are done
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -614,22 +1083,25 @@ cudaError_t set_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int TM, bool SPILL>
+// fp32 K1 (SPILL) and K3
+template <bool SPILL>
 int fwd_launch(const float* x, const Params& P, float* out, void* acts,
                int n, cudaStream_t st) {
-  auto kern = fwd_kernel<T, TM, SPILL>;
-  constexpr size_t sm = fwd_smem<T, TM, 1>();
+  constexpr int TM = 32;
+  auto kern = fwd_kernel<float, TM, SPILL>;
+  constexpr size_t sm = fwd_smem<float, TM, 1>();
   cudaError_t e = set_smem(kern, sm);
   if (e != cudaSuccess) return (int)e;
-  kern<<<n / TM, THREADS, sm, st>>>(x, P, out, reinterpret_cast<T*>(acts));
+  kern<<<n / TM, THREADS, sm, st>>>(x, P, out, reinterpret_cast<float*>(acts));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TM>
+// fp32 K6
 int fwd_pipelined_launch(const float* x, const Params& P, float* out, int n,
                          cudaStream_t st) {
-  auto kern = fwd_pipelined_kernel<T, TM>;
-  constexpr size_t sm = fwd_smem<T, TM, 2>();
+  constexpr int TM = 16;
+  auto kern = fwd_pipelined_kernel<float, TM>;
+  constexpr size_t sm = fwd_smem<float, TM, 2>();
   static_assert(sm <= 232448, "K6 exceeds a block's shared memory");
   cudaError_t e = set_smem(kern, sm);
   if (e != cudaSuccess) return (int)e;
@@ -637,55 +1109,76 @@ int fwd_pipelined_launch(const float* x, const Params& P, float* out, int n,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TM>
-int bwd_saved_launch(const Params& P, const float* dy, const void* acts,
-                     void* deltas, float* partials, float* dw, int n,
-                     int splits, const Tasks& tk, int total,
-                     cudaStream_t st) {
-  auto kd = bwd_delta_kernel<T, TM>;
-  constexpr size_t smd = delta_smem<T, TM>();
-  cudaError_t e = set_smem(kd, smd);
+// bf16 K1 (acts given: the spill), K3, K6 and K5's recompute: the forward
+// over n points (x rows) into out (unless null), streaming wstack.
+int fwd_tc_launch(const float* x, const Params& P, const void* wstack,
+                  float* out, void* acts, int n, cudaStream_t st) {
+  CUtensorMap wmap, amap{};
+  cudaError_t e = make_map(&wmap, wstack, HID, NF_STAGES * KS);
+  if (e == cudaSuccess && acts) e = make_map(&amap, acts, ACT_PAD, n);
+  auto kern = acts ? nerf_fwd_tc_kernel<true> : nerf_fwd_tc_kernel<false>;
+  if (e == cudaSuccess) e = set_smem(kern, NF_SMEM);
   if (e != cudaSuccess) return (int)e;
-  kd<<<n / TM, THREADS, smd, st>>>(P, dy, reinterpret_cast<const T*>(acts),
-                                   reinterpret_cast<T*>(deltas));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)dw_splitk<T>(reinterpret_cast<const T*>(acts), ACT_PAD,
-                           reinterpret_cast<const T*>(deltas), DELTA_W,
-                           partials, dw, n, splits, tk, total, 0, st);
+  const int n_tiles = n / TC_TILE;
+  kern<<<(n_tiles + 1) / 2, TC_THREADS, NF_SMEM, st>>>(
+      wmap, amap, x, P, out, reinterpret_cast<bf16_t*>(acts), n_tiles);
+  return (int)cudaGetLastError();
 }
 
-// K5: chunks of chunk_rows points (whole splits of cps * PK points each, the
-// last chunk the rest), each a recompute launch and its splits' partials;
-// then one sum over all `splits`.
-template <typename T, int TM>
-int bwd_launch(const float* x, const Params& P, const float* dy, void* acts,
-               void* deltas, int chunk_rows, void* pe_out, float* partials,
-               float* dw, int n, int splits, const Tasks& tk, int total,
-               cudaStream_t st) {
-  auto kr = bwd_recompute_kernel<T, TM>;
-  constexpr size_t sm = recompute_smem<T, TM>();
-  cudaError_t e = set_smem(kr, sm);
+// The delta chain over n points: deltas [n, DELTA_W] from dy [n, 8] and the
+// spill acts [n, ACT_PAD]; bf16 streams wstack and, when pe_out is given,
+// also writes dh9 | dh5 | dh0 to pe_out's rows pe_row0.. (pe_rows rows).
+int deltas_launch(const Params& P, const void* wstack, const float* dy,
+                  const void* acts, void* deltas, int n, void* pe_out,
+                  int pe_rows, int pe_row0, int bf16, cudaStream_t st) {
+  if (!bf16) {
+    constexpr int TM = 32;
+    auto kd = bwd_delta_kernel<float, TM>;
+    constexpr size_t smd = delta_smem<float, TM>();
+    cudaError_t e = set_smem(kd, smd);
+    if (e != cudaSuccess) return (int)e;
+    kd<<<n / TM, THREADS, smd, st>>>(P, dy,
+                                     reinterpret_cast<const float*>(acts),
+                                     reinterpret_cast<float*>(deltas));
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap wmap, amap, dmap, pmap{};
+  cudaError_t e = make_map(&wmap, wstack, HID, NB_STAGES * KS);
+  if (e == cudaSuccess) e = make_map(&amap, acts, ACT_PAD, n);
+  if (e == cudaSuccess) e = make_map(&dmap, deltas, DELTA_W, n);
+  if (e == cudaSuccess && pe_out) e = make_map(&pmap, pe_out, PE_DW, pe_rows);
+  if (e == cudaSuccess) e = set_smem(nerf_bwd_delta_tc_kernel, NB_SMEM);
   if (e != cudaSuccess) return (int)e;
+  const int n_tiles = n / TC_TILE;
+  nerf_bwd_delta_tc_kernel<<<(n_tiles + 1) / 2, TC_THREADS, NB_SMEM, st>>>(
+      wmap, amap, dmap, pmap, P, dy, reinterpret_cast<bf16_t*>(deltas),
+      n_tiles, pe_out ? pe_row0 : -1);
+  return (int)cudaGetLastError();
+}
+
+// K5: chunks of chunk_rows points (whole splits of cps * PK points each,
+// the last chunk the rest); for each, tile(r0, rows) launches the per-tile
+// work into the acts and deltas workspaces, then the chunk's splits'
+// partials; then one sum over all `splits`.
+template <typename T, typename F>
+int bwd_chunks(F tile, const void* acts, const void* deltas, int chunk_rows,
+               float* partials, float* dw, int n, int splits, const Tasks& tk,
+               int total, cudaStream_t st) {
   const int cps = chunks_per_split(n, splits), per_split = cps * PK;
   if (chunk_rows < 1
       || (chunk_rows < n && (chunk_rows % per_split || chunk_rows % 128)))
     return (int)cudaErrorInvalidValue;
-  T* a = reinterpret_cast<T*>(acts);
-  T* d = reinterpret_cast<T*>(deltas);
-  T* po = reinterpret_cast<T*>(pe_out);
   for (int r0 = 0; r0 < n; r0 += chunk_rows) {
     const int rows = min(chunk_rows, n - r0);
-    kr<<<rows / TM, THREADS, sm, st>>>(x + (size_t)r0 * IN_PAD, P,
-                                       dy + (size_t)r0 * OUT_PAD, a, d,
-                                       po ? po + (size_t)r0 * PE_DW : nullptr);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    int e = tile(r0, rows);
+    if (e) return e;
     const int s0 = r0 / per_split;
     const int ns = r0 + rows < n ? rows / per_split : splits - s0;
-    e = dw_partials<T>(a, ACT_PAD, d, DELTA_W, partials + (size_t)s0 * total,
-                       rows, ns, cps, tk, total, st);
-    if (e != cudaSuccess) return (int)e;
+    e = (int)dw_partials<T>(reinterpret_cast<const T*>(acts), ACT_PAD,
+                            reinterpret_cast<const T*>(deltas), DELTA_W,
+                            partials + (size_t)s0 * total, rows, ns, cps, tk,
+                            total, st);
+    if (e) return e;
   }
   return (int)sum_splits(partials, dw, total, splits, 0, st);
 }
@@ -711,71 +1204,112 @@ Params make_params(const void* const* w) {
 
 }  // namespace
 
-// K1: out [n, 8] and the activation spill [n, ACT_PAD].
+// K1: out [n, 8] and the activation spill [n, ACT_PAD]; bf16 also takes the
+// forward weight stack ([2464, 256] bf16).
 extern "C" int nerf_mlp_fwd_save(const float* x, const void* const* w,
-                                 float* out, void* acts, int n, int bf16,
-                                 void* stream) {
+                                 const void* wstack, float* out, void* acts,
+                                 int n, int bf16, void* stream) {
+  if (n % 128 || (bf16 && !wstack)) return (int)cudaErrorInvalidValue;
   const Params P = make_params(w);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (n % 128) return (int)cudaErrorInvalidValue;
-  return bf16 ? fwd_launch<bf16_t, 64, true>(x, P, out, acts, n, st)
-              : fwd_launch<float, 32, true>(x, P, out, acts, n, st);
+  return bf16 ? fwd_tc_launch(x, P, wstack, out, acts, n, st)
+              : fwd_launch<true>(x, P, out, acts, n, st);
 }
 
-// K3 (pipe = 0) or K6 (pipe = 1): out [n, 8].
-extern "C" int nerf_mlp_fwd(const float* x, const void* const* w, float* out,
-                            int n, int pipe, int bf16, void* stream) {
+// K3 (pipe = 0) or K6 (pipe = 1): out [n, 8].  In bf16 both are the same
+// kernel, its two warpgroups K6's two chains.
+extern "C" int nerf_mlp_fwd(const float* x, const void* const* w,
+                            const void* wstack, float* out, int n, int pipe,
+                            int bf16, void* stream) {
+  if (n % 128 || (bf16 && !wstack)) return (int)cudaErrorInvalidValue;
   const Params P = make_params(w);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (n % 128) return (int)cudaErrorInvalidValue;
-  if (pipe)
-    return bf16 ? fwd_pipelined_launch<bf16_t, 64>(x, P, out, n, st)
-                : fwd_pipelined_launch<float, 16>(x, P, out, n, st);
-  return bf16 ? fwd_launch<bf16_t, 64, false>(x, P, out, nullptr, n, st)
-              : fwd_launch<float, 32, false>(x, P, out, nullptr, n, st);
+  if (bf16) return fwd_tc_launch(x, P, wstack, out, nullptr, n, st);
+  return pipe ? fwd_pipelined_launch(x, P, out, n, st)
+              : fwd_launch<false>(x, P, out, nullptr, n, st);
+}
+
+// K2's delta chain alone (its part (a)): deltas [n, DELTA_W] from dy [n, 8]
+// and the spill; bf16 also takes the backward weight stack ([2176, 256]).
+extern "C" int nerf_mlp_deltas(const void* const* w, const void* wstack,
+                               const float* dy, const void* acts,
+                               void* deltas, int n, int bf16, void* stream) {
+  if (n % 128 || (bf16 && !wstack)) return (int)cudaErrorInvalidValue;
+  return deltas_launch(make_params(w), wstack, dy, acts, deltas, n, nullptr,
+                       0, 0, bf16, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K2: the packed gradients into dw from dy [n, 8] and the spill; deltas
-// [n, DELTA_W] is its workspace (and K4's input), partials [splits, total].
-extern "C" int nerf_mlp_bwd_saved(const void* const* w, const float* dy,
-                                  const void* acts, void* deltas,
-                                  float* partials, float* dw, int n,
-                                  int splits, const int* tasks, int n_tasks,
-                                  int bf16, void* stream) {
-  if (n % 128 || n_tasks > MAX_TASKS || splits < 1)
+// [n, DELTA_W] is its workspace (and K4's input), partials [splits, total];
+// bf16 also takes the backward weight stack.
+extern "C" int nerf_mlp_bwd_saved(const void* const* w, const void* wstack,
+                                  const float* dy, const void* acts,
+                                  void* deltas, float* partials, float* dw,
+                                  int n, int splits, const int* tasks,
+                                  int n_tasks, int bf16, void* stream) {
+  if (n % 128 || n_tasks > MAX_TASKS || splits < 1 || (bf16 && !wstack))
     return (int)cudaErrorInvalidValue;
-  const Params P = make_params(w);
   Tasks tk;
   const int total = make_tasks(tasks, n_tasks, tk);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? bwd_saved_launch<bf16_t, 64>(P, dy, acts, deltas, partials,
-                                             dw, n, splits, tk, total, st)
-              : bwd_saved_launch<float, 32>(P, dy, acts, deltas, partials, dw,
-                                            n, splits, tk, total, st);
+  const int e = deltas_launch(make_params(w), wstack, dy, acts, deltas, n,
+                              nullptr, 0, 0, bf16, st);
+  if (e) return e;
+  return bf16 ? (int)dw_splitk<bf16_t>(
+                    reinterpret_cast<const bf16_t*>(acts), ACT_PAD,
+                    reinterpret_cast<const bf16_t*>(deltas), DELTA_W,
+                    partials, dw, n, splits, tk, total, 0, st)
+              : (int)dw_splitk<float>(
+                    reinterpret_cast<const float*>(acts), ACT_PAD,
+                    reinterpret_cast<const float*>(deltas), DELTA_W,
+                    partials, dw, n, splits, tk, total, 0, st);
 }
 
 // K5: the packed gradients into dw from x and dy [n, 8].  acts
 // [chunk_rows, ACT_PAD] and deltas [chunk_rows, DELTA_W] are its
 // workspaces, partials [splits, total]; chunk_rows is a multiple of 128 and
 // of a split's points.  pe_out ([n, 640]: dh9 | dh5 | dh0, K4's input) may
-// be null.
+// be null.  bf16 also takes both weight stacks: per chunk K1's forward
+// kernel (the spill into acts), then K2's delta kernel.
 extern "C" int nerf_mlp_bwd(const float* x, const void* const* w,
+                            const void* wstack_fwd, const void* wstack_bwd,
                             const float* dy, void* acts, void* deltas,
                             int chunk_rows, void* pe_out, float* partials,
                             float* dw, int n, int splits, const int* tasks,
                             int n_tasks, int bf16, void* stream) {
-  if (n % 128 || n_tasks > MAX_TASKS || splits < 1)
+  if (n % 128 || n_tasks > MAX_TASKS || splits < 1
+      || (bf16 && !(wstack_fwd && wstack_bwd)))
     return (int)cudaErrorInvalidValue;
   const Params P = make_params(w);
   Tasks tk;
   const int total = make_tasks(tasks, n_tasks, tk);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? bwd_launch<bf16_t, 64>(x, P, dy, acts, deltas, chunk_rows,
-                                       pe_out, partials, dw, n, splits, tk,
-                                       total, st)
-              : bwd_launch<float, 32>(x, P, dy, acts, deltas, chunk_rows,
-                                      pe_out, partials, dw, n, splits, tk,
-                                      total, st);
+  if (bf16) {
+    auto tile = [&](int r0, int rows) {
+      const int e = fwd_tc_launch(x + (size_t)r0 * IN_PAD, P, wstack_fwd,
+                                  nullptr, acts, rows, st);
+      if (e) return e;
+      return deltas_launch(P, wstack_bwd, dy + (size_t)r0 * OUT_PAD, acts,
+                           deltas, rows, pe_out, n, r0, 1, st);
+    };
+    return bwd_chunks<bf16_t>(tile, acts, deltas, chunk_rows, partials, dw,
+                              n, splits, tk, total, st);
+  }
+  constexpr int TM = 32;
+  auto kr = bwd_recompute_kernel<float, TM>;
+  constexpr size_t sm = recompute_smem<float, TM>();
+  const cudaError_t e = set_smem(kr, sm);
+  if (e != cudaSuccess) return (int)e;
+  float* po = reinterpret_cast<float*>(pe_out);
+  auto tile = [&](int r0, int rows) {
+    kr<<<rows / TM, THREADS, sm, st>>>(
+        x + (size_t)r0 * IN_PAD, P, dy + (size_t)r0 * OUT_PAD,
+        reinterpret_cast<float*>(acts), reinterpret_cast<float*>(deltas),
+        po ? po + (size_t)r0 * PE_DW : nullptr);
+    return (int)cudaGetLastError();
+  };
+  return bwd_chunks<float>(tile, acts, deltas, chunk_rows, partials, dw, n,
+                           splits, tk, total, st);
 }
 
 // K4: dx [n, 8] from x [n, 8] and the deltas dh9 [n, 128], dh5 and dh0

@@ -1,28 +1,27 @@
 // Building blocks shared by the port's MLP kernels (nerf_mlp.cu, film_mlp.cu):
-// the per-tile layer product on the tensor cores, and the deterministic
-// split-K dW = act^T delta with its fixed-order sum.
+// the per-tile layer product of the fp32 check mode on the CUDA cores, the
+// deterministic split-K dW = act^T delta with its fixed-order sum, and the
+// bf16 per-tile pass's machinery on wgmma (section "bf16 per-tile pass").
 //
-// A group of NT threads (a whole CTA of THREADS, or one warpgroup of it
-// synchronised by its own named barrier) owns a tile of TM points.  Its
-// activations live in shared memory (row stride HID + pad); each layer's
-// weights stream through shared memory in KS-row slices (cp.async double
-// buffer) and the product is accumulated in fp32 (WMMA bf16 on the tensor
-// cores, or FMA on the CUDA cores in the fp32 check mode, T = float).  Each
-// output element sums its products in the same order whatever NT and TM are.
+// fp32 (layer_mm): a group of NT threads (a whole CTA of THREADS, or one
+// warpgroup of it synchronised by its own named barrier) owns a tile of TM
+// points.  Its activations live in shared memory (row stride HID + pad);
+// each layer's weights stream through shared memory in KS-row slices
+// (cp.async double buffer) and the product is accumulated by FMA on the
+// CUDA cores.  Each output element sums its products in the same order
+// whatever NT and TM are.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace tile_mm {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16_t;
 
 constexpr int HID = 256;
@@ -124,10 +123,12 @@ __device__ __forceinline__ void load_slice(const Operand<T>& op, int k0,
 // C[TM, nout] (fp32, row stride CLD) = sum over ops of A @ W (or A @ W^T),
 // by the group of NT threads (barrier BAR) that owns these TM rows; wbuf
 // holds two slices (2 * wstage_of<T, TRANS>()).  nout is 256 or 128.
-// Starts and ends with the group synchronised.
+// Starts and ends with the group synchronised.  fp32 only: the bf16
+// products run on wgmma (tc_product).
 template <typename T, int TM, bool TRANS, int NT = THREADS, int BAR = 0>
 __device__ void layer_mm(const Operand<T>* ops, int n_ops, int nout, T* wbuf,
                          float* C) {
+  static_assert(!is_bf16<T>(), "bf16 products run on wgmma");
   const int tid = threadIdx.x % NT;
   const int n0 = ops[0].k / KS;
   const int S = n0 + (n_ops > 1 ? ops[1].k / KS : 0);
@@ -142,117 +143,54 @@ __device__ void layer_mm(const Operand<T>* ops, int n_ops, int nout, T* wbuf,
     load_slice<T, TRANS, NT>(*op, k0, nout, wbuf, tid);
     cp_commit();
   }
-  if constexpr (is_bf16<T>()) {
-    constexpr int FR = TM / 16, WARPS = NT / 32, NF = HID / WARPS / 16;
-    const int warp = tid / 32;
-    const int wcols = nout / WARPS, nfc = wcols / 16, col0 = warp * wcols;
-    typedef typename std::conditional<TRANS, wmma::col_major,
-                                      wmma::row_major>::type BLayout;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR][NF];
+  // fp32 check mode: a thread owns cpt columns, ct apart (ct threads
+  // across the columns), and `rows` rows of them
+  constexpr int NC = HID / NT > 1 ? HID / NT : 1;
+  const int ct = nout < NT ? nout : NT, cpt = nout / ct;
+  const int rows = TM / (NT / ct);
+  const int c0 = tid % ct, r0 = (tid / ct) * rows;
+  float acc[NC][TM];
 #pragma unroll
-    for (int i = 0; i < FR; ++i)
+  for (int j = 0; j < NC; ++j)
 #pragma unroll
-      for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (int s = 0; s < S; ++s) {
-      if (s + 1 < S) {
-        const Operand<T>* op; int k0;
-        slice(s + 1, op, k0);
-        load_slice<T, TRANS, NT>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE,
-                                 tid);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      group_sync<NT, BAR>();
-      const T* wb = wbuf + (s & 1) * STAGE;
+    for (int r = 0; r < TM; ++r) acc[j][r] = 0.f;
+  for (int s = 0; s < S; ++s) {
+    if (s + 1 < S) {
       const Operand<T>* op; int k0;
-      slice(s, op, k0);
+      slice(s + 1, op, k0);
+      load_slice<T, TRANS, NT>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE,
+                               tid);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    group_sync<NT, BAR>();
+    const T* wb = wbuf + (s & 1) * STAGE;
+    const Operand<T>* op; int k0;
+    slice(s, op, k0);
+    for (int k = 0; k < KS; ++k) {
+      const T* a = op->a + r0 * op->lda + k0 + k;
 #pragma unroll
-      for (int kk = 0; kk < KS; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16_t, wmma::row_major>
-            fa[FR];
+      for (int j = 0; j < NC; ++j) {
+        if (j < cpt) {
+          const int col = c0 + j * ct;
+          const float w = TRANS ? to_f(wb[col * (KS + pad16<T>()) + k])
+                                : to_f(wb[k * (nout + pad16<T>()) + col]);
 #pragma unroll
-        for (int i = 0; i < FR; ++i)
-          wmma::load_matrix_sync(fa[i], op->a + i * 16 * op->lda + k0 + kk,
-                                 op->lda);
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          if (j < nfc) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, BLayout> fb;
-            if constexpr (TRANS)
-              wmma::load_matrix_sync(
-                  fb, wb + (col0 + j * 16) * (KS + pad16<T>()) + kk,
-                  KS + pad16<T>());
-            else
-              wmma::load_matrix_sync(
-                  fb, wb + kk * (nout + pad16<T>()) + col0 + j * 16,
-                  nout + pad16<T>());
-#pragma unroll
-            for (int i = 0; i < FR; ++i)
-              wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-          }
+          for (int r = 0; r < TM; ++r)
+            if (r < rows) acc[j][r] += to_f(a[r * op->lda]) * w;
         }
       }
-      group_sync<NT, BAR>();
     }
-#pragma unroll
-    for (int i = 0; i < FR; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-        if (j < nfc)
-          wmma::store_matrix_sync(C + i * 16 * CLD + col0 + j * 16,
-                                  acc[i][j], CLD, wmma::mem_row_major);
-  } else {
-    // fp32 check mode: a thread owns cpt columns, ct apart (ct threads
-    // across the columns), and `rows` rows of them
-    constexpr int NC = HID / NT > 1 ? HID / NT : 1;
-    const int ct = nout < NT ? nout : NT, cpt = nout / ct;
-    const int rows = TM / (NT / ct);
-    const int c0 = tid % ct, r0 = (tid / ct) * rows;
-    float acc[NC][TM];
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[j][r] = 0.f;
-    for (int s = 0; s < S; ++s) {
-      if (s + 1 < S) {
-        const Operand<T>* op; int k0;
-        slice(s + 1, op, k0);
-        load_slice<T, TRANS, NT>(*op, k0, nout, wbuf + ((s + 1) & 1) * STAGE,
-                                 tid);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      group_sync<NT, BAR>();
-      const T* wb = wbuf + (s & 1) * STAGE;
-      const Operand<T>* op; int k0;
-      slice(s, op, k0);
-      for (int k = 0; k < KS; ++k) {
-        const T* a = op->a + r0 * op->lda + k0 + k;
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          if (j < cpt) {
-            const int col = c0 + j * ct;
-            const float w = TRANS ? to_f(wb[col * (KS + pad16<T>()) + k])
-                                  : to_f(wb[k * (nout + pad16<T>()) + col]);
-#pragma unroll
-            for (int r = 0; r < TM; ++r)
-              if (r < rows) acc[j][r] += to_f(a[r * op->lda]) * w;
-          }
-        }
-      }
-      group_sync<NT, BAR>();
-    }
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      if (j < cpt)
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-          if (r < rows) C[(r0 + r) * CLD + c0 + j * ct] = acc[j][r];
+    group_sync<NT, BAR>();
   }
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    if (j < cpt)
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        if (r < rows) C[(r0 + r) * CLD + c0 + j * ct] = acc[j][r];
   group_sync<NT, BAR>();
 }
 
@@ -776,6 +714,247 @@ dw_splitk_tc_kernel(const __grid_constant__ CUtensorMap act_map,
     dw_consume<256>(jb, ring, ring_g, bars, n_it, dst);
   else
     dw_consume<128>(jb, ring, ring_g, bars, n_it, dst);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 per-tile pass: two 64-point tiles per CTA on one TMA weight ring
+// ---------------------------------------------------------------------------
+//
+// The machinery of the per-tile kernels of film_mlp.cu (K7's delta chain,
+// K8) and nerf_mlp.cu (K1/K3/K6, K2's delta chain).  A CTA has two consumer
+// warpgroups, each owning one 64-point tile (global tile 2 blockIdx.x + wg),
+// and one producer warpgroup.  The producer's one thread streams a weight
+// stack ([rows, 256] bf16, row-major, the rows in the order the products
+// read them) through a ring of TC_STAGES stages with TMA: a stage is 32
+// K-rows x 256 columns as four 32 x 64 boxes with 128-byte swizzle, so every
+// B operand is MN-major as in the split-K pass.  A stage is released when
+// both warpgroups have read it (a warpgroup without a tile still waits on
+// every full barrier and arrives on every empty one, tc_idle).  Each
+// warpgroup keeps its tile's activations as A: [64, 256] bf16, K-major, four
+// 8 KB blocks of 64 points x 64 columns, each point's 64 columns one
+// 128-byte row swizzled as a TMA box would be (a_offset); other K-major
+// operands (a PE block) use the same layout.  A product is wgmma.m64n256k16
+// over 32-row slices into 128 fp32 registers per thread: register 4 j + 2 h
+// + c holds row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + c.
+// The kernels' epilogues work on those registers, walked in blocks
+// (acc_block), and overwrite A in place, since the product that read A has
+// retired; A then goes to a workspace by TMA (tc_store_a).
+//
+// Shared memory: [1024-aligned ring | A of warpgroup 0 | A of warpgroup 1 |
+// the kernel's own region (`extra` bytes) | full and empty barriers].
+
+constexpr int TC_STAGES = 6;
+constexpr int TC_STAGE_BYTES = KS * HID * 2;  // 16384: 32 weight rows
+constexpr int TC_TILE = 64;                   // points per warpgroup
+constexpr int TC_A_BLOCK = TC_TILE * 64 * 2;  // 8192: 64 points x 64 columns
+constexpr int TC_A_BYTES = 4 * TC_A_BLOCK;
+constexpr int TC_WG = 128;
+constexpr int TC_CONSUMERS = 2 * TC_WG;
+// and a producer warpgroup, whose one thread issues the TMA loads: with 384
+// threads a thread may hold 168 registers at launch; setmaxnreg moves them
+// from the producer (40) to the consumers (232), which hold 128 fp32
+// accumulators each through the epilogues.
+constexpr int TC_THREADS = TC_CONSUMERS + 128;
+constexpr int TC_PRODUCER_REGS = 40, TC_CONSUMER_REGS = 232;
+static_assert(TC_CONSUMERS * TC_CONSUMER_REGS
+                  + (TC_THREADS - TC_CONSUMERS) * TC_PRODUCER_REGS <= 65536,
+              "register file");
+static_assert(HID / DW_BOX * DW_BOX_BYTES == TC_STAGE_BYTES, "stage boxes");
+// A's descriptor: K-major, 8-point atoms 1,024 B apart (SBO); LBO unused.
+constexpr uint32_t TC_A_LBO = 16, TC_A_SBO = 1024;
+
+// The dynamic shared memory of a pass whose own region takes `extra` bytes.
+constexpr size_t tc_smem(size_t extra) {
+  return 1024 + (size_t)TC_STAGES * TC_STAGE_BYTES + 2 * (size_t)TC_A_BYTES
+         + extra + 2 * TC_STAGES * 8;
+}
+
+// A's byte offset of (point p, column col)
+__device__ __forceinline__ int a_offset(int p, int col) {
+  return (col >> 6) * TC_A_BLOCK + swizzled(p, col & 63);
+}
+
+// out[i] = acc[4 jb + i] for i < 4 JB; jb a multiple of JB, known only at
+// run time (the registers are named at compile time in each case).
+template <int JB>
+__device__ __forceinline__ void acc_block(const float* acc, int jb,
+                                          float* out) {
+  constexpr int N = 4 * JB;
+  static_assert(HID / 2 / N <= 16, "acc_block has 16 cases");
+  switch (jb / JB) {
+#define TC_ACC_CASE(B)                                \
+  case B:                                             \
+    if constexpr ((B) * N < HID / 2) {                \
+      _Pragma("unroll") for (int i = 0; i < N; ++i)   \
+        out[i] = acc[(B) * N + i];                    \
+    }                                                 \
+    break;
+    TC_ACC_CASE(0) TC_ACC_CASE(1) TC_ACC_CASE(2) TC_ACC_CASE(3)
+    TC_ACC_CASE(4) TC_ACC_CASE(5) TC_ACC_CASE(6) TC_ACC_CASE(7)
+    TC_ACC_CASE(8) TC_ACC_CASE(9) TC_ACC_CASE(10) TC_ACC_CASE(11)
+    TC_ACC_CASE(12) TC_ACC_CASE(13) TC_ACC_CASE(14) TC_ACC_CASE(15)
+#undef TC_ACC_CASE
+  }
+}
+
+struct TcCtx {
+  uint32_t ring, bars;  // shared addresses: the ring; full, then empty
+  uint32_t a;           // this warpgroup's A (shared address)
+  unsigned char* ag;    // ... and its generic pointer
+  float* scr;           // this warpgroup's fp32 scratch (the kernel's)
+  int it;               // ring stages consumed so far
+  int wg, warp, lane, tid;
+  int row0;             // the tile's first row in the workspaces
+};
+
+// The kernel's own region, after both As: its shared address and its
+// generic pointer.
+__device__ __forceinline__ uint32_t tc_ext(const TcCtx& c) {
+  return c.a + (2 - (c.wg & 1)) * TC_A_BYTES;
+}
+__device__ __forceinline__ unsigned char* tc_ext_ptr(const TcCtx& c) {
+  return c.ag + (2 - (c.wg & 1)) * TC_A_BYTES;
+}
+
+__device__ __forceinline__ void wg_sync(const TcCtx& c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c.wg) : "memory");
+}
+
+// acc (+)= A x the next SLICES ring stages (a K of 32 SLICES): A at shared
+// address a, K-major as above; accumulate = 0 starts from zero.  Each stage
+// is released once its wgmmas have retired.  Ends with the warpgroup
+// synchronised, so A may be overwritten.
+template <int SLICES>
+__device__ __forceinline__ void tc_product(TcCtx& c, float* acc, uint32_t a,
+                                           int accumulate) {
+  for (int s = 0; s < SLICES; ++s, ++c.it) {
+    const int st = c.it % TC_STAGES;
+    mbar_wait(c.bars + 8 * st, (c.it / TC_STAGES) & 1);
+    __syncwarp();  // wgmma is .aligned
+    const uint32_t b = c.ring + st * TC_STAGE_BYTES;
+    if (s == 0) wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS / 16; ++k) {
+      const int kk = s * (KS / 16) + k;  // k16 step of the product
+      wgmma_m64n256k16<0>(
+          acc,
+          gmma_desc(a + (kk >> 2) * TC_A_BLOCK + (kk & 3) * 32, TC_A_LBO,
+                    TC_A_SBO),
+          gmma_desc(b + k * 2048, 4096, 1024), accumulate || s + k > 0);
+    }
+    wgmma_commit();
+    if (s > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(c.bars + 8 * (TC_STAGES + (c.it - 1) % TC_STAGES));
+    }
+  }
+  wgmma_wait0();
+  mbar_arrive(c.bars + 8 * (TC_STAGES + (c.it - 1) % TC_STAGES));
+  if (c.tid == 0) bulk_wait_read<0>();  // tc_store_a is done with A
+  wg_sync(c);
+}
+
+// The warpgroup's A (its first `blocks` 64-column blocks) -> the tensor
+// map's rows c.row0 + row_off.. and columns col0.. (a workspace), by TMA
+// from one thread once A is complete and fenced; the next tc_product waits
+// until the copy has read A.
+__device__ __forceinline__ void tc_store_a(const TcCtx& c,
+                                           const CUtensorMap* map, int col0,
+                                           int blocks = HID / DW_BOX,
+                                           int row_off = 0) {
+  if (c.tid == 0) {
+    for (int b = 0; b < blocks; ++b)
+      for (int h = 0; h < TC_TILE / PK; ++h)
+        tma_store_2d(map, col0 + b * DW_BOX, c.row0 + row_off + h * PK,
+                     c.a + b * TC_A_BLOCK + h * PK * 128);
+    bulk_commit();
+  }
+}
+
+// `blocks` 64-column boxes of the tensor map's rows row0.. (a tile) into an
+// A-layout buffer at shared address dst, completing on mbarrier bar (whose
+// expected bytes the caller sets: DW_BOX_BYTES per box, 2 boxes per block).
+__device__ __forceinline__ void tc_load_tile(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             int col0, int row0, int blocks,
+                                             uint32_t bar) {
+  for (int b = 0; b < blocks; ++b)
+    for (int h = 0; h < TC_TILE / PK; ++h)
+      tma_load_2d(dst + b * TC_A_BLOCK + h * PK * 128, map, col0 + b * DW_BOX,
+                  row0 + h * PK, bar);
+}
+
+// The producer's one thread: the `n` stages (KS rows each) of the stack
+// behind `map`, from its row 0, into the ring from stage count `it`;
+// returns the count after them.
+__device__ __forceinline__ int tc_produce(uint32_t ring, uint32_t bars,
+                                          const CUtensorMap* map, int n,
+                                          int it) {
+  for (int r = 0; r < n; ++r, ++it) {
+    const int s = it % TC_STAGES;
+    mbar_wait(bars + 8 * (TC_STAGES + s), ((it / TC_STAGES) & 1) ^ 1);
+    mbar_expect_tx(bars + 8 * s, TC_STAGE_BYTES);
+    const uint32_t st = ring + s * TC_STAGE_BYTES;
+    for (int b = 0; b < HID / DW_BOX; ++b)
+      tma_load_2d(st + b * DW_BOX_BYTES, map, b * DW_BOX, r * KS,
+                  bars + 8 * s);
+  }
+  return it;
+}
+
+// A warpgroup without a tile keeps the ring's count for `n` stages.
+__device__ __forceinline__ void tc_idle(const TcCtx& c, int n) {
+  for (int it = 0; it < n; ++it) {
+    const int s = it % TC_STAGES;
+    mbar_wait(c.bars + 8 * s, (it / TC_STAGES) & 1);
+    mbar_arrive(c.bars + 8 * (TC_STAGES + s));
+  }
+}
+
+__device__ __forceinline__ void tc_regs_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TC_PRODUCER_REGS));
+}
+__device__ __forceinline__ void tc_regs_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TC_CONSUMER_REGS));
+}
+
+// The set-up of a pass whose own region takes `extra` bytes (a multiple of
+// 8): carves shared memory and initialises the ring's barriers; returns
+// this thread's context (scr and row0 unset).
+__device__ __forceinline__ TcCtx tc_setup(unsigned char* raw_p, int extra) {
+  const uint32_t raw = smem_u32(raw_p);
+  TcCtx c;
+  c.ring = (raw + 1023) & ~1023u;
+  const uint32_t a0 = c.ring + TC_STAGES * TC_STAGE_BYTES;
+  c.wg = threadIdx.x / TC_WG;
+  c.tid = threadIdx.x % TC_WG;
+  c.warp = c.tid / 32;
+  c.lane = threadIdx.x % 32;
+  c.a = a0 + (c.wg & 1) * TC_A_BYTES;
+  c.ag = raw_p + (c.a - raw);
+  c.bars = a0 + 2 * TC_A_BYTES + extra;
+  c.it = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(c.bars + 8 * s, 1);
+      mbar_init(c.bars + 8 * (TC_STAGES + s), TC_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return c;
+}
+
+// two neighbouring values of a kernel input (read-only for the launch)
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldb2(const bf16_t* p) {
+  return __bfloat1622float2(
+      __ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ void stb2(void* p, __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
 }
 
 // cuTensorMapEncodeTiled, looked up at run time (libcuda is not linked).

@@ -3,12 +3,18 @@
 Port of ``msra_practice_project_tpu/ops/pallas/nerf_mlp.py``:
   K1 ``nerf_mlp_fwd_save``   <- ``_fwd_save_kernel`` (``_fused_forward_save``)
   K2 ``nerf_mlp_bwd_saved``  <- ``_bwd_saved_kernel`` + ``_grad_body``
+     (its delta chain alone: ``nerf_mlp_deltas``)
   K3 ``nerf_mlp_fwd``        <- ``_fwd_kernel`` (``_fused_forward``)
   K6 ``nerf_mlp_fwd_pipelined`` <- ``_fwd_kernel_pipelined`` (``pipe=True``)
   K5 ``nerf_mlp_bwd``        <- ``_bwd_kernel`` + ``_grad_body`` (recompute)
   K4 ``nerf_mlp_dx``         <- ``_grad_body``'s ``need_dx`` block
 The CUDA kernels are ``csrc/nerf_mlp.cu``; the source notes there give the
-bound on an H100 and the design.
+bound on an H100 and the design.  In bf16, K1, K3 and K6 are one kernel on
+wgmma (``nerf_fwd_tc_kernel``) and K2's delta chain another
+(``nerf_bwd_delta_tc_kernel``), K5 runs both per chunk; each streams one
+weight stack (``weight_stacks``, in the order of ``FWD_SCHEDULE`` and
+``BWD_SCHEDULE``, 32 rows per stage) and moves activations and deltas by
+TMA in boxes of 64 columns.
 
 Each kernel has a plain PyTorch version here with the same ``bf16`` switch:
 with ``bf16=True`` it rounds matmul operands and stored activations to bf16
@@ -102,6 +108,25 @@ PE_DELTA_SLOTS = [("dh9", RGB_HID), ("dh5", HID), ("dh0", HID)]
 PE_DELTA_OFFS, PE_DELTA_W = _offsets(PE_DELTA_SLOTS)    # PE_DELTA_W = 640
 
 
+# The bf16 kernels' products in the order they stream their weight stack,
+# each K / 32 ring stages of 32 rows (csrc/nerf_mlp.cu, "bf16: the forward
+# and the delta chain on wgmma"; tests/test_torch_nerf_tc.py emulates
+# them).  Forward: (weight, A operand, the activation written after it, or
+# None when the next product accumulates onto it).
+FWD_SCHEDULE = (
+    [("W0", "pe_p", "h0")] + [(f"W{i}", "act", f"h{i}") for i in range(1, 5)]
+    + [("W5a", "pe_p", None), ("W5b", "act", "h5"), ("W6", "act", "h6"),
+       ("W7", "act", "h7"), ("W8", "act", "hd"), ("W9a", "act", None),
+       ("W9b", "pe_d", "h9")])
+# Backward: (weight, used transposed; the delta written after it; the
+# activation whose relu mask it takes, or None); dh9 comes before, from
+# the heads.
+BWD_SCHEDULE = (
+    [("W9a", "dhd", None), ("W8", "dh7", "h7"), ("W7", "dh6", "h6"),
+     ("W6", "dh5", "h5"), ("W5b", "dh4", "h4")]
+    + [(f"W{i}", f"dh{i - 1}", f"h{i - 1}") for i in (4, 3, 2, 1)])
+
+
 # ---------------------------------------------------------------------------
 # Packing (differentiable, so autograd unpacks the packed gradients)
 # ---------------------------------------------------------------------------
@@ -132,6 +157,28 @@ def pack_nerf_params(model) -> dict:
         Wr=_pad(model.rgb.weight.t(), RGB_HID, OUT_PAD),
         br=_pad(model.rgb.bias[None], 1, OUT_PAD))
     return {k: out[k] for k in PACK_KEYS}
+
+
+def weight_stacks(w: list) -> tuple:
+    """The bf16 kernels' two weight streams, ``[rows, 256]`` row-major in
+    the weights' dtype (bf16 for the kernels), each product's rows in the
+    order it reads them: the forward stack ``[W0 | W1..W4 | W5a | W5b | W6 |
+    W7 | W8 | W9a | W9b]`` (2,464 rows; W9a and W9b zero-padded to 256
+    columns) and the backward stack ``[W9a^T, W8^T, W7^T, W6^T, W5b^T,
+    W4^T, ..., W1^T]`` (2,176 rows)."""
+    return _fwd_stack(w), _bwd_stack(w)
+
+
+def _fwd_stack(w):
+    d = dict(zip(PACK_KEYS, w))  # few ops: a launch builds it on the host
+    return torch.cat([d[k] if d[k].shape[1] == HID
+                      else F.pad(d[k], (0, HID - d[k].shape[1]))
+                      for k, _, _ in FWD_SCHEDULE])
+
+
+def _bwd_stack(w):
+    d = dict(zip(PACK_KEYS, w))
+    return torch.cat([d[k].t() for k, _, _ in BWD_SCHEDULE])
 
 
 def pad_points(x: torch.Tensor) -> torch.Tensor:
@@ -325,15 +372,17 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         pp, ip = ctypes.POINTER(p), ctypes.POINTER(ctypes.c_int)
-        lib.nerf_mlp_fwd_save.argtypes = [p, pp, p, p, i, i, p]
-        lib.nerf_mlp_fwd.argtypes = [p, pp, p, i, i, i, p]
-        lib.nerf_mlp_bwd_saved.argtypes = [pp, p, p, p, p, p, i, i, ip, i, i,
-                                           p]
-        lib.nerf_mlp_bwd.argtypes = [p, pp, p, p, p, i, p, p, p, i, i, ip, i,
-                                     i, p]
+        lib.nerf_mlp_fwd_save.argtypes = [p, pp, p, p, p, i, i, p]
+        lib.nerf_mlp_fwd.argtypes = [p, pp, p, p, i, i, i, p]
+        lib.nerf_mlp_deltas.argtypes = [pp, p, p, p, p, i, i, p]
+        lib.nerf_mlp_bwd_saved.argtypes = [pp, p, p, p, p, p, p, i, i, ip, i,
+                                           i, p]
+        lib.nerf_mlp_bwd.argtypes = [p, pp, p, p, p, p, p, i, p, p, p, i, i,
+                                     ip, i, i, p]
         lib.nerf_mlp_dx.argtypes = [p, pp, p, p, p, i, p, i, i, p]
         for fn in (lib.nerf_mlp_fwd_save, lib.nerf_mlp_fwd,
-                   lib.nerf_mlp_bwd_saved, lib.nerf_mlp_bwd, lib.nerf_mlp_dx):
+                   lib.nerf_mlp_deltas, lib.nerf_mlp_bwd_saved,
+                   lib.nerf_mlp_bwd, lib.nerf_mlp_dx):
             fn.restype = i
         lib._argtypes_set = True
     return lib
@@ -383,6 +432,10 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _raise_on(err, name):
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -399,9 +452,10 @@ def nerf_mlp_fwd_save(x: torch.Tensor, w: list, bf16: bool = True):
     acts = torch.empty((n, ACT_PAD), device=x.device,
                        dtype=torch.bfloat16 if bf16 else torch.float32)
     with torch.cuda.device(x.device):
+        stack = _fwd_stack(w) if bf16 else None
         _raise_on(_lib().nerf_mlp_fwd_save(
-            x.data_ptr(), wp, out.data_ptr(), acts.data_ptr(), n, int(bf16),
-            _stream(x.device)), "nerf_mlp_fwd_save")
+            x.data_ptr(), wp, _ptr(stack), out.data_ptr(), acts.data_ptr(), n,
+            int(bf16), _stream(x.device)), "nerf_mlp_fwd_save")
     nerf_mlp_fwd_save.launches += 1
     return out, acts
 
@@ -416,9 +470,10 @@ def _launch_fwd(x: torch.Tensor, w: list, bf16: bool, pipe: bool,
     wp = _check_weights(w, bf16, x.device)
     out = torch.empty((n, OUT_PAD), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        stack = _fwd_stack(w) if bf16 else None
         _raise_on(_lib().nerf_mlp_fwd(
-            x.data_ptr(), wp, out.data_ptr(), n, int(pipe), int(bf16),
-            _stream(x.device)), name)
+            x.data_ptr(), wp, _ptr(stack), out.data_ptr(), n, int(pipe),
+            int(bf16), _stream(x.device)), name)
     return out
 
 
@@ -437,9 +492,11 @@ nerf_mlp_fwd.launches = 0
 
 def nerf_mlp_fwd_pipelined(x: torch.Tensor, w: list,
                            bf16: bool = True) -> torch.Tensor:
-    """K6 (``_fused_forward``'s ``pipe=True``): K3's forward run by two
-    staggered warpgroups, bitwise equal to K3.  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/nerf_mlp.cu``."""
+    """K6 (``_fused_forward``'s ``pipe=True``): K3's forward as two chains,
+    bitwise equal to K3 (in bf16 it is K3's kernel, whose two warpgroups,
+    one tile each on one weight stream, are the two chains).  CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/nerf_mlp.cu``."""
     if x.device.type == "cpu":
         return nerf_mlp_fwd_plain(x, w, bf16)
     out = _launch_fwd(x, w, bf16, True, "nerf_mlp_fwd_pipelined")
@@ -471,8 +528,9 @@ SCRATCH_BYTES = 2 ** 31  # K5's workspaces
 
 def macs_per_point() -> dict:
     """Multiply-adds per point of each kernel's work (unpadded layers): the
-    forward ("fwd": K1, K3, K6), K2's delta chain and dW ("bwd_saved"), K5's
-    recomputed forward and K2's work ("bwd"), and K4's products ("dx")."""
+    forward ("fwd": K1, K3, K6), K2's delta chain and dW ("bwd_saved"), the
+    delta chain alone ("deltas"), K5's recomputed forward and K2's work
+    ("bwd"), and K4's products ("dx")."""
     layers = [(60, 256)] + [(256, 256)] * 4 + [(316, 256)] + [(256, 256)] * 2 \
         + [(256, 1), (256, 256), (280, 128), (128, 3)]
     fwd = sum(i * o for i, o in layers)
@@ -481,9 +539,10 @@ def macs_per_point() -> dict:
     # rebuilt from h7/h9
     chain = (4 * 256 * 256 + 256 * 256 + 2 * 256 * 256 + 256 * 1
              + 256 * 256 + 256 * 128 + 128 * 3)
-    saved = fwd + chain + 256 + 128 * 3
+    heads = 256 + 128 * 3  # sigma and rgb rebuilt from h7 and h9
+    saved = fwd + chain + heads
     return {"fwd": fwd, "bwd_saved": saved, "bwd": fwd + saved,
-            "dx": 2 * 60 * HID + 24 * RGB_HID}
+            "deltas": chain + heads, "dx": 2 * 60 * HID + 24 * RGB_HID}
 
 
 def bwd_splits(n: int) -> int:
@@ -513,6 +572,33 @@ def _pe_deltas(deltas, offs):
                  for k in ("dh9", "dh5", "dh0"))
 
 
+def nerf_mlp_deltas(w: list, dy: torch.Tensor, acts: torch.Tensor,
+                    bf16: bool = True) -> torch.Tensor:
+    """K2's delta chain alone (its part (a)): the delta workspace ``[N,
+    DELTA_W]`` from the saved activations, as ``nerf_mlp_deltas_plain``.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/nerf_mlp.cu``.  ``launches`` also counts the delta kernels that
+    K2 and K5 launch."""
+    if dy.device.type == "cpu":
+        return nerf_mlp_deltas_plain(w, dy, acts, bf16)
+    n = _check_rows(dy, "dy", OUT_PAD)
+    dev = dy.device
+    act_dt = torch.bfloat16 if bf16 else torch.float32
+    _check(acts, "acts", (n, ACT_PAD), act_dt, dev)
+    wp = _check_weights(w, bf16, dev)
+    deltas = torch.empty((n, DELTA_W), dtype=act_dt, device=dev)
+    with torch.cuda.device(dev):
+        stack = _bwd_stack(w) if bf16 else None
+        _raise_on(_lib().nerf_mlp_deltas(
+            wp, _ptr(stack), dy.data_ptr(), acts.data_ptr(),
+            deltas.data_ptr(), n, int(bf16), _stream(dev)), "nerf_mlp_deltas")
+    nerf_mlp_deltas.launches += 1
+    return deltas
+
+
+nerf_mlp_deltas.launches = 0
+
+
 def nerf_mlp_bwd_saved(w: list, dy: torch.Tensor, acts: torch.Tensor,
                        bf16: bool = True):
     """K2: (the 26 parameter gradients, fp32, packed shapes, ``PACK_KEYS``
@@ -534,11 +620,14 @@ def nerf_mlp_bwd_saved(w: list, dy: torch.Tensor, acts: torch.Tensor,
     dw = torch.empty(GRAD_TOTAL, dtype=torch.float32, device=dev)
     tasks = (ctypes.c_int * len(_TASKS))(*_TASKS)
     with torch.cuda.device(dev):
+        stack = _bwd_stack(w) if bf16 else None
         _raise_on(_lib().nerf_mlp_bwd_saved(
-            wp, dy.data_ptr(), acts.data_ptr(), deltas.data_ptr(),
-            partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
-            len(PACK_KEYS), int(bf16), _stream(dev)), "nerf_mlp_bwd_saved")
+            wp, _ptr(stack), dy.data_ptr(), acts.data_ptr(),
+            deltas.data_ptr(), partials.data_ptr(), dw.data_ptr(), n, splits,
+            tasks, len(PACK_KEYS), int(bf16), _stream(dev)),
+            "nerf_mlp_bwd_saved")
     nerf_mlp_bwd_saved.launches += 1
+    nerf_mlp_deltas.launches += 1       # its delta chain
     DW.dw_splitk.launches += int(bf16)  # its split-K pass (fp32: FMA tiles)
     return _split_grads(dw), _pe_deltas(deltas, DELTA_OFFS)
 
@@ -552,7 +641,9 @@ def nerf_mlp_bwd(x: torch.Tensor, w: list, dy: torch.Tensor,
     gradients as K2 returns them; the deltas ``(dh9, dh5, dh0)`` when
     ``need_dx`` else None).  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/nerf_mlp.cu`` over chunks of ``chunk_rows``
-    points: dW/db bitwise equal to K1 then K2 on the same inputs."""
+    points (bf16: K1's forward kernel, then K2's delta kernel, then the
+    split-K pass, per chunk): dW/db bitwise equal to K1 then K2 on the same
+    inputs."""
     if x.device.type == "cpu":
         return nerf_mlp_bwd_plain(x, w, dy, bf16, need_dx)
     n = _check_rows(x, "x", IN_PAD)
@@ -570,13 +661,16 @@ def nerf_mlp_bwd(x: torch.Tensor, w: list, dy: torch.Tensor,
     dw = torch.empty(GRAD_TOTAL, dtype=torch.float32, device=dev)
     tasks = (ctypes.c_int * len(_TASKS))(*_TASKS)
     with torch.cuda.device(dev):
+        fwd_stack, bwd_stack = weight_stacks(w) if bf16 else (None, None)
         _raise_on(_lib().nerf_mlp_bwd(
-            x.data_ptr(), wp, dy.data_ptr(), acts.data_ptr(),
-            deltas.data_ptr(), rows, pe.data_ptr() if need_dx else None,
-            partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
+            x.data_ptr(), wp, _ptr(fwd_stack), _ptr(bwd_stack),
+            dy.data_ptr(), acts.data_ptr(), deltas.data_ptr(), rows,
+            _ptr(pe), partials.data_ptr(), dw.data_ptr(), n, splits, tasks,
             len(PACK_KEYS), int(bf16), _stream(dev)), "nerf_mlp_bwd")
     nerf_mlp_bwd.launches += 1
-    DW.dw_splitk.launches += -(-n // rows) if bf16 else 0  # one per chunk
+    chunks = -(-n // rows) if bf16 else 0  # fp32: one fused kernel per chunk
+    nerf_mlp_deltas.launches += chunks     # the delta chain of each chunk
+    DW.dw_splitk.launches += chunks        # and its split-K pass
     return _split_grads(dw), (_pe_deltas(pe, PE_DELTA_OFFS) if need_dx
                               else None)
 
@@ -618,7 +712,9 @@ KERNELS = (nerf_mlp_fwd_save, nerf_mlp_bwd_saved, nerf_mlp_fwd,
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    """Every counter to 0: the kernels', and the delta chain's (counted
+    apart, as the split-K pass is, since K2 and K5 launch it)."""
+    for k in (*KERNELS, nerf_mlp_deltas):
         k.launches = 0
 
 

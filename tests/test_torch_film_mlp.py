@@ -317,10 +317,12 @@ def test_layout_tables_match_the_cuda_source():
     assert (const("IN_PAD"), const("OUT_PAD"), const("N_FILM"),
             const("PT_MULT")) == (K.IN_PAD, K.OUT_PAD, K.N_FILM, K.PT_MULT)
     assert (const("HID", hdr), const("KS", hdr)) == (K.HID, 32)
-    assert (const("TC_STAGES"), const("TC_TILE")) == (K.TC_STAGES, K.TC_TILE)
-    assert "TC_STAGE_BYTES = KS * HID * 2;" in src
+    # the bf16 per-tile pass's machinery, shared with nerf_mlp.cu
+    assert (const("TC_STAGES", hdr), const("TC_TILE", hdr)) == (
+        K.TC_STAGES, K.TC_TILE)
+    assert "TC_STAGE_BYTES = KS * HID * 2;" in hdr
     assert K.TC_STAGE_BYTES == 32 * K.HID * 2
-    assert "TC_A_BLOCK = TC_TILE * 64 * 2;" in src
+    assert "TC_A_BLOCK = TC_TILE * 64 * 2;" in hdr
     assert K.TC_A_BLOCK == K.TC_TILE * 64 * 2
     for name, v in (("ACT_W", K.ACT_W), ("U_W", K.U_W),
                     ("DELTA_W", K.DELTA_W), ("SUM_W", K.SUM_W)):

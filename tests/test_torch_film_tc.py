@@ -74,7 +74,7 @@ def test_a_buffer_offset_is_the_128_byte_swizzle_and_a_bijection():
     assert re.search(r"return p \* 128 \+ \(\(\(\(col >> 3\) \^ p\) & 7\) "
                      r"<< 4\) \+ \(col & 7\) \* 2;", _source("tile_mm.cuh"))
     assert ("return (col >> 6) * TC_A_BLOCK + swizzled(p, col & 63);"
-            in _source("film_mlp.cu"))
+            in _source("tile_mm.cuh"))
 
 
 # 15: chip_smoke.py's odd-tile shape (3 images of 320 points); 2304: a chunk
