@@ -7,8 +7,9 @@ Phases; any failure exits non-zero:
      in this checkout, one nvcc per source, all started together; the
      built libraries' SASS (cuobjdump, or nvdisasm on a cubin) must hold
      HGMMA and no HMMA in the bf16 per-tile kernels of K7 and K8
-     (film_mlp) and of K1/K3/K6 and K2's delta chain (nerf_mlp), and no
-     HMMA anywhere in the NeRF library;
+     (film_mlp) and of K1/K3/K6 and K2's delta chain (nerf_mlp), HGMMA on
+     TF32 operands and no HMMA in K8's fp32 kernel (film_fwd_tf32_kernel),
+     and no HMMA anywhere in the NeRF library;
 The split-K dW pass that K2, K5 and K7 share (csrc/tile_mm.cuh):
   1b. hold it, launched alone, against its plain version: one CTA first
      (a 64 x 256 product over 64 points against torch.mm in fp32), then
@@ -56,22 +57,32 @@ pi-GAN (K7, K8):
      shapes (64 images of 8,192 and of 24,576 points) and at 3 images of
      320 points (an odd number of 64-point tiles, so the last CTA's second
      warpgroup has none, and a CTA whose two tiles lie in two images), in
-     fp32 and bf16, K7 with and without dx, and check that K7 is bitwise
-     reproducible;
-  11. the pi-GAN path: `train_pigan.train` on configs/pi_gan/test.json in
-     the default trunk mode 1 (plain forward, K7 backward) through both
-     stages (iterations [20, 30], fade-in [0, 5]); K7 must be launched once
-     per iteration and K8 never.  Iterations 11-20 (stage 0) are one timed
-     window: ms per iteration (a D step and a G step) and images/s;
-  12. the same recipe in mode 2 (K8 forward, K7 backward), 8 iterations of
-     stage 0, the last 4 timed; K8 4 launches and K7 1 per iteration;
-  13. both modes again for 6 iterations with torch.profiler on for the last
-     3: busy, idle share and the time by kernel, K7's per-tile kernel by
-     name (per launch and per iteration);
-  14. K8 and K7 per launch at both shapes beside the plain version and the
+     fp32 and bf16, K7 with and without dx, and check that K7 and K8 are
+     bitwise reproducible; K8 in fp32 is the 3xTF32 kernel
+     (film_fwd_tf32_kernel);
+  11. mode 1's trunk (K8 in fp32) on the points the generator's render_film
+     feeds it at both stages of test.json (64 images of 32x32 pixels, 16 of
+     64x64; coarse and fine pass) against the plain trunk on the same
+     inputs, 1e-4 of max|ref|;
+  12. the pi-GAN path: `train_pigan.train` on configs/pi_gan/test.json in
+     the default trunk mode 1 (MSRA_TPU_FUSED_FILM unset: K8 forward in
+     fp32, K7 backward) through both stages (iterations [20, 30], fade-in
+     [0, 5]); K8 must be launched 4 times per iteration besides the demo
+     grid's launches (counted around it), all in fp32, and K7 once: no
+     plain trunk forward.
+     Iterations 11-20 (stage 0) are one timed window: ms per iteration (a D
+     step and a G step) and images/s;
+  13. the same recipe in mode 2 (K8 forward in bf16, K7 backward), 8
+     iterations of stage 0, the last 4 timed; K8 4 launches and K7 1 per
+     iteration;
+  14. both modes again for 6 iterations with torch.profiler on for the last
+     3: busy, idle share and the time by kernel, K7's per-tile kernel and
+     K8's kernel (fp32 in mode 1, bf16 in mode 2) by name, 4 K8 launches
+     per iteration;
+  15. K8 and K7 per launch at both shapes beside the plain version and the
      least time the card could take, and K8 in fp32 beside its plain
-     version;
-  15. the split-K pass per launch at K2's two shapes and K7's coarse one,
+     version and its 3xTF32 bound;
+  16. the split-K pass per launch at K2's two shapes and K7's coarse one,
      beside its plain version, the least time the card could take and a
      yardstick the port never calls: cuBLAS, one torch.mm (or column sum)
      per task.
@@ -95,9 +106,11 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 and tf32
+# FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494.7e12
 COARSE_N, FINE_N = 1024 * 64, 1024 * 192
 ROOFLINE_BATCH = 1024   # rays; the roofline tool's MLP points: 262,144
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -374,6 +387,8 @@ FILM_ROWS = FILM_B * FILM_COARSE_P   # K7's rows at the coarse shape
 FILM_ODD = (3, 320)
 # K7's and K8's bf16 per-tile kernels (csrc/film_mlp.cu)
 TC_KERNELS = ("film_bwd_delta_tc_kernel", "film_fwd_tc_kernel")
+# K8's fp32 kernel: 3xTF32 on wgmma
+TF32_KERNEL = "film_fwd_tf32_kernel"
 # K1's (K3's, K6's) and K2's delta chain's (csrc/nerf_mlp.cu)
 NERF_TC_KERNELS = ("nerf_fwd_tc_kernel", "nerf_bwd_delta_tc_kernel")
 
@@ -427,15 +442,16 @@ def film_plain_sliced(torch, FK, x, film, dy, wk, bf16, need_dx):
 
 def check_film(torch, FK, n_img, n_pts):
     """K8 and K7 against their plain versions on the card, same inputs, in
-    fp32 and bf16, K7 with need_dx False and True; two K7 launches must be
-    bitwise equal.  Returns the bf16 mode's max |kernel - plain| per
-    kernel."""
+    fp32 and bf16, K7 with need_dx False and True; two K7 launches and two
+    K8 launches must be bitwise equal.  Returns the max |kernel - plain|
+    per kernel, K8's fp32 mode as film_mlp_fwd_f32."""
     x, film, w, dy = film_inputs(torch, FK, n_img, n_pts)
     x, film, dy = x.cuda(), film.cuda(), dy.cuda()
     report = {}
     for bf16 in (False, True):
         wk = [t.cuda() for t in FK.kernel_weights(w, bf16)]
         out_k = FK.film_mlp_fwd(x, film, wk, bf16)
+        fwd_same = torch.equal(out_k, FK.film_mlp_fwd(x, film, wk, bf16))
         runs = {nd: [FK.film_mlp_bwd(x, film, dy, wk, bf16, nd)
                      for _ in range(2)] for nd in (False, True)}
         out_p, dx_p, dfilm_p, g_p = film_plain_sliced(torch, FK, x, film, dy,
@@ -467,20 +483,83 @@ def check_film(torch, FK, n_img, n_pts):
                   f"{float(b.abs().max()):.3e}", flush=True)
         gate = FILM_GATES[bf16]
         ok = (worst["fwd"] <= gate["fwd"] and worst["bwd"] <= gate["bwd"]
-              and same and nodx_same)
+              and same and nodx_same and fwd_same)
         print(f"  bf16={bf16}: K8 worst {worst['fwd']:.3e} (gate "
-              f"{gate['fwd']:g}); K7 worst {worst['bwd']:.3e} at "
-              f"{worst_key['bwd']} (gate {gate['bwd']:g}); bitwise repeat "
-              f"{same}; need_dx=False same grads {nodx_same} -> "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"{gate['fwd']:g}), bitwise repeat {fwd_same}; K7 worst "
+              f"{worst['bwd']:.3e} at {worst_key['bwd']} (gate "
+              f"{gate['bwd']:g}); bitwise repeat {same}; need_dx=False same "
+              f"grads {nodx_same} -> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit("K7/K8 disagree with their plain versions")
         if bf16:
-            report = {"film_mlp_fwd": max_abs["fwd"],
-                      "film_mlp_bwd": max_abs["bwd"]}
+            report.update(film_mlp_fwd=max_abs["fwd"],
+                          film_mlp_bwd=max_abs["bwd"])
+        else:
+            report["film_mlp_fwd_f32"] = max_abs["fwd"]
         del runs, res, out_k, out_p, dx_p, dfilm_p, g_p
         torch.cuda.synchronize()
     return report
+
+
+# test.json's stages: (batch, resolution)
+PIGAN_STAGES = ((64, 32), (16, 64))
+
+
+def check_mode1_trunk(torch, FK, batch, resolution):
+    """Mode 1's trunk (the default on CUDA tensors: K8 in fp32) on the
+    points the generator's render_film feeds it, a coarse and a fine call
+    for `batch` images of resolution^2 pixels with test.json's 8 + 16
+    samples (random weights and latents), against the plain trunk
+    (_apply_plain) on the same inputs: max |err| / max |ref| within K8's
+    fp32 gate, and each call one fp32 K8 launch.  MSRA_TPU_FUSED_FILM is
+    unset for the check.  Returns the worst ratio."""
+    old = os.environ.pop("MSRA_TPU_FUSED_FILM", None)
+    try:
+        return _check_mode1_trunk(torch, FK, batch, resolution)
+    finally:
+        if old is not None:
+            os.environ["MSRA_TPU_FUSED_FILM"] = old
+
+
+def _check_mode1_trunk(torch, FK, batch, resolution):
+    from msra_practice_project_tpu_torch.models import pigan
+
+    g = torch.Generator().manual_seed(2)
+    gen = pigan.Generator(pigan.GeneratorConfig(
+        resolution=resolution, coarse_samples=8, fine_samples=16),
+        generator=g).cuda()
+    trunk, calls = gen.trunk, []
+
+    def record(x, film, need_dx=True):
+        calls.append((x.detach().clone(), film.detach().clone()))
+        return pigan.FilmSirenNeRF.forward(trunk, x, film, need_dx)
+
+    trunk.forward = record
+    z = torch.randn(batch, gen.cfg.z_dim, generator=g).cuda()
+    with torch.no_grad():
+        gen(z, generator=torch.Generator(device="cuda").manual_seed(3))
+    del trunk.forward
+    worst = 0.0
+    for x, film in calls:
+        before = FK.film_mlp_fwd.launches_f32
+        with torch.no_grad():
+            got = trunk(x, film, need_dx=False)
+            ref = trunk._apply_plain(x, film)
+        torch.cuda.synchronize()
+        r = float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                 1e-30)
+        worst = max(worst, r)
+        k8 = FK.film_mlp_fwd.launches_f32 - before
+        print(f"  trunk call on x {tuple(x.shape)}: err/max {r:.3e} (gate "
+              f"{FILM_GATES[False]['fwd']:g}), fp32 K8 launches {k8}",
+              flush=True)
+        if not (r <= FILM_GATES[False]["fwd"] and k8 == 1
+                and got.shape == ref.shape):
+            raise SystemExit("mode 1's trunk disagrees with the plain trunk")
+        del got, ref
+    if len(calls) != 2:
+        raise SystemExit(f"render_film called the trunk {len(calls)} times")
+    return worst
 
 
 # Gates of the K7/K8 checks (PERF.md §2): fp32 max |err| over max |ref| per
@@ -922,6 +1001,23 @@ def film_bounds(FK, n_img, n_pts, w):
     return out
 
 
+def film_f32_bound(FK, n_img, n_pts, w):
+    """(K8 fp32 bound ms, bound_by, FMA ms): the least time for one fp32 K8
+    launch, the larger of its bytes over HBM's rate and its operations over
+    their peak rates (3 tf32 passes of every MAC over the tf32 tensor-core
+    rate, the sines over the fp32 rate), and the same MACs as FMA on the
+    CUDA cores."""
+    wbytes = sum(t.numel() * t.element_size() for t in w)
+    n = n_img * n_pts
+    macs = film_macs()[0]
+    t = {"bytes": (n * 64 + wbytes + n_img * FK.N_FILM * 2 * FK.HID * 4)
+         / HBM_BYTES_PER_S * 1e3,
+         "operations": max(3 * 2 * macs * n / TF32_FLOP_PER_S,
+                           SINE_OPS * 2304 * n / FP32_FLOP_PER_S) * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by, 2 * macs * n / FP32_FLOP_PER_S * 1e3
+
+
 def time_film(torch, FK, n_img, n_pts, reps):
     """K8 and K7 (bf16, need_dx=False as the generator calls it) per launch
     beside their plain versions (sliced over images) and their bounds."""
@@ -954,6 +1050,8 @@ def time_film(torch, FK, n_img, n_pts, reps):
     res["fwd_f32_ms"] = time_ms(torch, lambda: FK.film_mlp_fwd(
         x, film, wf, False), reps)
     res["fwd_f32_plain_ms"] = time_ms(torch, plain_fwd_f32, 3)
+    (res["fwd_f32_bound_ms"], res["fwd_f32_bound_by"],
+     res["fwd_f32_fma_ms"]) = film_f32_bound(FK, n_img, n_pts, wf)
     b1, by1, b2, by2 = film_bounds(FK, n_img, n_pts, wk)
     res.update(fwd_bound_ms=b1, fwd_bound_by=by1, bwd_bound_ms=b2,
                bwd_bound_by=by2)
@@ -962,11 +1060,13 @@ def time_film(torch, FK, n_img, n_pts, reps):
 
 def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
     """train_pigan.train on configs/pi_gan/test.json with `overrides`, in
-    trunk mode `mode` (MSRA_TPU_FUSED_FILM), in a temporary directory; the
-    launch counters are set to 0 just before it and read just after.
-    Iterations window_end - timed + 1 .. window_end are one window timed
-    with CUDA events, with `window` entered for them.  Returns (ms per iteration, launches, loss log,
-    checkpoint written, PNG written)."""
+    trunk mode `mode` (MSRA_TPU_FUSED_FILM, unset for the default mode 1),
+    in a temporary directory; the launch counters are set to 0 just before
+    it and read just after.  Iterations window_end - timed + 1 ..
+    window_end are one window timed with CUDA events, with `window` entered
+    for them.  Returns (ms per iteration, launches, loss log, checkpoint
+    written, PNG written, the launches the demo grids made: counted around
+    each save_demo_grid call)."""
     from msra_practice_project_tpu_torch.core.config import (
         CONFIG_ROOT, PIGAN_TRAIN_DEFAULTS, load_config, resolve)
     from msra_practice_project_tpu_torch.train import train_pigan
@@ -974,8 +1074,19 @@ def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
     cfg = resolve(load_config(os.path.join(CONFIG_ROOT, "pi_gan",
                                            "test.json")),
                   PIGAN_TRAIN_DEFAULTS)
-    old = os.environ.get("MSRA_TPU_FUSED_FILM")
-    os.environ["MSRA_TPU_FUSED_FILM"] = str(mode)
+    old = os.environ.pop("MSRA_TPU_FUSED_FILM", None)
+    if mode != 1:  # mode 1 is the default on CUDA: the variable stays unset
+        os.environ["MSRA_TPU_FUSED_FILM"] = str(mode)
+    demo = dict.fromkeys(("film_mlp_fwd", "film_mlp_fwd_f32"), 0)
+    save_demo_grid = train_pigan.save_demo_grid
+
+    def counted_demo_grid(*args, **kwargs):
+        before = (FK.film_mlp_fwd.launches, FK.film_mlp_fwd.launches_f32)
+        save_demo_grid(*args, **kwargs)
+        demo["film_mlp_fwd"] += FK.film_mlp_fwd.launches - before[0]
+        demo["film_mlp_fwd_f32"] += FK.film_mlp_fwd.launches_f32 - before[1]
+
+    train_pigan.save_demo_grid = counted_demo_grid
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
             cfg.update(output_path=out_dir, experiment_name="pigan_smoke",
@@ -985,42 +1096,50 @@ def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
                                     window_end=window_end, window=window)
             torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in FK.KERNELS}
+            launches["film_mlp_fwd_f32"] = FK.film_mlp_fwd.launches_f32
             launches["dw_splitk"] = dw_launches()
             last = cfg["iterations"][-1]
             log = os.path.join(out_dir, "pigan_smoke")
             ckpt = os.path.exists(os.path.join(log, f"{last:06d}.ckpt"))
             png = os.path.exists(os.path.join(log, f"{last:06d}.png"))
     finally:
-        if old is None:
-            os.environ.pop("MSRA_TPU_FUSED_FILM")
-        else:
+        train_pigan.save_demo_grid = save_demo_grid
+        os.environ.pop("MSRA_TPU_FUSED_FILM", None)
+        if old is not None:
             os.environ["MSRA_TPU_FUSED_FILM"] = old
-    return res["window_ms"] / timed, launches, res["loss_log"], ckpt, png
+    return res["window_ms"] / timed, launches, res["loss_log"], ckpt, png, demo
 
 
 def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
                files=False):
     """One pi-GAN run; fails unless every loss is finite, each kernel
-    launched `want[name]` times per iteration, the split-K pass at least
-    once per K7 launch (once per chunk of images) and, with `files`, the
-    last iteration wrote its checkpoint and its demo grid."""
-    ms, launches, log, ckpt, png = run_pigan(torch, FK, mode, overrides,
-                                             timed, window_end)
+    launched `want[name]` times per iteration besides the launches counted
+    around the demo grids (K8 in mode 1's fp32 only, and at least one when
+    a grid is written), the split-K pass at least once per K7 launch (once
+    per chunk of images) and, with `files`, the last iteration wrote its
+    checkpoint and its demo grid."""
+    ms, launches, log, ckpt, png, demo = run_pigan(
+        torch, FK, mode, overrides, timed, window_end)
     n_it = overrides["iterations"][-1]
     batch = overrides.get("batch_size", [64])[0]
     losses = log["d_loss"] + log["g_loss"]
     finite = (len(losses) == 2 * n_it
               and all(v == v and abs(v) != float("inf") for v in losses))
-    per_it = {k: v / n_it for k, v in launches.items() if k != "dw_splitk"}
+    per_it = {k: (v - demo.get(k, 0)) / n_it
+              for k, v in launches.items() if k != "dw_splitk"}
+    demo_ok = (demo["film_mlp_fwd_f32"]
+               == demo["film_mlp_fwd"] * (mode == 1)
+               and (demo["film_mlp_fwd"] > 0 or not files))
     print(f"  mode {mode}: d_loss first/last {log['d_loss'][0]:.4f}/"
           f"{log['d_loss'][-1]:.4f}, g_loss first/last "
           f"{log['g_loss'][0]:.4f}/{log['g_loss'][-1]:.4f}, finite {finite}, "
-          f"launches {launches} ({per_it} per iteration), ckpt {ckpt}, "
-          f"png {png}", flush=True)
+          f"launches {launches} ({per_it} per iteration besides the demo "
+          f"grids' {demo}), ckpt {ckpt}, png {png}", flush=True)
     print(f"  mode {mode}: window of iterations {window_end - timed + 1}-"
           f"{window_end} (CUDA events): {ms:.3f} ms/iteration, "
           f"{batch / (ms / 1e3):.1f} images/s", flush=True)
-    if not (finite and per_it == want and (ckpt and png or not files)
+    if not (finite and per_it == want and demo_ok
+            and (ckpt and png or not files)
             and launches["dw_splitk"] >= launches["film_mlp_bwd"]):
         raise SystemExit(f"pi-GAN mode {mode} check failed")
     return ms, launches, ckpt, png
@@ -1061,8 +1180,8 @@ def sass_of(build, name, lib_path):
 
 
 def sass_counts(sass, kernels):
-    """({kernel: [HGMMA, HMMA]} over the functions whose names contain one
-    of `kernels`, the HMMA count over every function)."""
+    """({kernel: [HGMMA, HMMA, HGMMA on TF32]} over the functions whose
+    names contain one of `kernels`, the HMMA count over every function)."""
     import re
     counts, cur, hmma_all = {}, None, 0
     for line in sass.splitlines():
@@ -1071,37 +1190,44 @@ def sass_counts(sass, kernels):
             name = m.group(1) or m.group(2)
             cur = next((k for k in kernels if k in name), None)
             if cur:
-                counts.setdefault(cur, [0, 0])
+                counts.setdefault(cur, [0, 0, 0])
             continue
         hmma = len(re.findall(r"\bHMMA\b", line))
         hmma_all += hmma
         if cur:
-            counts[cur][0] += len(re.findall(r"\bHGMMA\b", line))
+            hgmma = len(re.findall(r"\bHGMMA\b", line))
+            counts[cur][0] += hgmma
             counts[cur][1] += hmma
+            counts[cur][2] += hgmma if "TF32" in line else 0
     return counts, hmma_all
 
 
 def check_sass(build, libs):
     """Fails unless each bf16 per-tile kernel (TC_KERNELS of the FiLM
     library, NERF_TC_KERNELS of the NeRF one) has HGMMA (wgmma) and no HMMA
-    (WMMA or mma.sync) in its SASS, and the NeRF library has no HMMA at
-    all; returns {kernel: (HGMMA count, HMMA count)}."""
+    (WMMA or mma.sync) in its SASS, K8's fp32 kernel (TF32_KERNEL) has
+    HGMMA, all of it on TF32 operands, and no HMMA, and the NeRF library
+    has no HMMA at all; returns {kernel: (HGMMA count, HMMA count, HGMMA
+    count on TF32)}."""
     out, ok = {}, True
-    for name, kernels in (("film_mlp", TC_KERNELS),
+    for name, kernels in (("film_mlp", TC_KERNELS + (TF32_KERNEL,)),
                           ("nerf_mlp", NERF_TC_KERNELS)):
         tool, sass = sass_of(build, name, libs[name])
         counts, hmma_all = sass_counts(sass, kernels)
         good = (set(counts) == set(kernels)
-                and all(g > 0 and h == 0 for g, h in counts.values())
+                and all(g > 0 and h == 0 for g, h, _ in counts.values())
+                and all((t == g) == (k == TF32_KERNEL)
+                        for k, (g, _, t) in counts.items())
                 and (name == "film_mlp" or hmma_all == 0))
         ok = ok and good
         print(f"  SASS of {name} ({tool}): " + "; ".join(
-            f"{k} HGMMA {g}, HMMA {h}" for k, (g, h) in counts.items())
+            f"{k} HGMMA {g} ({t} on TF32), HMMA {h}"
+            for k, (g, h, t) in counts.items())
             + f"; HMMA in the whole library {hmma_all} -> "
             f"{'ok' if good else 'FAIL'}", flush=True)
         out.update({k: tuple(v) for k, v in counts.items()})
     if not ok:
-        raise SystemExit("the bf16 per-tile kernels are not on wgmma")
+        raise SystemExit("the per-tile kernels are not on wgmma")
     return out
 
 
@@ -1254,19 +1380,29 @@ def main() -> int:
             film_errs[name] = max(err, film_errs.get(name, 0.0))
         torch.cuda.synchronize()
 
+    worst = 0.0
+    for batch, res in PIGAN_STAGES:
+        phase(f"mode 1's trunk (K8 in fp32) on render_film's points vs the "
+              f"plain trunk: {batch} images of {res}x{res}")
+        worst = max(worst, check_mode1_trunk(torch, FK, batch, res))
+        torch.cuda.synchronize()
+    summary["pigan_mode1_trunk_err_over_max"] = worst
+
     phase("pi-GAN main path: train_pigan.train, test.json, mode 1 "
-          "(hybrid), iterations [20, 30], fade-in [0, 5]")
+          "(hybrid: K8 in fp32, K7), iterations [20, 30], fade-in [0, 5]")
     ms1, launches1, _, _ = pigan_path(
         torch, FK, 1, dict(iterations=[20, 30], fade_in_itrs=[0, 5],
                            i_print=10, i_save=30, i_image=30),
-        10, 20, {"film_mlp_fwd": 0.0, "film_mlp_bwd": 1.0}, files=True)
+        10, 20, {"film_mlp_fwd": 4.0, "film_mlp_fwd_f32": 4.0,
+                 "film_mlp_bwd": 1.0}, files=True)
     torch.cuda.synchronize()
-    phase("pi-GAN mode 2 (K8 forward): stage 0, 8 iterations")
+    phase("pi-GAN mode 2 (K8 forward in bf16): stage 0, 8 iterations")
     ms2, launches2, _, _ = pigan_path(
         torch, FK, 2, dict(iterations=[8], fade_in_itrs=[0],
                            batch_size=[64], resolution=[32], i_print=4,
                            i_save=1000, i_image=1000),
-        4, 8, {"film_mlp_fwd": 4.0, "film_mlp_bwd": 1.0})
+        4, 8, {"film_mlp_fwd": 4.0, "film_mlp_fwd_f32": 0.0,
+               "film_mlp_bwd": 1.0})
     torch.cuda.synchronize()
     print(f"  ms/iteration at stage 0: mode 1 {ms1:.3f}, mode 2 "
           f"{ms2:.3f}", flush=True)
@@ -1276,7 +1412,7 @@ def main() -> int:
                    pigan_mode2_images_per_s=64 / (ms2 / 1e3))
 
     from torch.profiler import ProfilerActivity, profile
-    delta = {}
+    delta, k8_prof = {}, {}
     for mode in (1, 2):
         phase(f"profile: pi-GAN mode {mode}, stage 0, 6 iterations, "
               "torch.profiler on for the last 3")
@@ -1295,6 +1431,13 @@ def main() -> int:
               f"{d['ms_per_launch']:.4f} ms per launch", flush=True)
         if not d["launches_per_iteration"]:
             raise SystemExit(f"{TC_KERNELS[0]} not seen in the profile")
+        k8 = TF32_KERNEL if mode == 1 else TC_KERNELS[1]
+        k8_prof[f"mode{mode}"] = d = kernel_by_name(by_name, k8, 3)
+        print(f"  {k8}: {d['ms_per_iteration']:.3f} ms/iteration in "
+              f"{d['launches_per_iteration']:g} launches", flush=True)
+        if d["launches_per_iteration"] != 4:
+            raise SystemExit(f"{k8} not launched 4 times per iteration in "
+                             f"the mode {mode} profile")
         torch.cuda.synchronize()
 
     phase("K7/K8 timings (bf16, CUDA events, median)")
@@ -1306,7 +1449,10 @@ def main() -> int:
               f"(plain {t['fwd_plain_ms']:.4f}, bound "
               f"{t['fwd_bound_ms']:.4f} {t['fwd_bound_by']}; fp32 "
               f"{t['fwd_f32_ms']:.4f}, plain fp32 "
-              f"{t['fwd_f32_plain_ms']:.4f}); K7 "
+              f"{t['fwd_f32_plain_ms']:.4f}, bound (3xTF32) "
+              f"{t['fwd_f32_bound_ms']:.4f} {t['fwd_f32_bound_by']}, the "
+              f"same MACs as FMA at the CUDA cores' peak (arithmetic) "
+              f"{t['fwd_f32_fma_ms']:.4f}); K7 "
               f"{t['bwd_ms']:.4f} ms (plain {t['bwd_plain_ms']:.4f}, "
               f"bound {t['bwd_bound_ms']:.4f} {t['bwd_bound_by']})",
               flush=True)
@@ -1330,10 +1476,23 @@ def main() -> int:
             entry["delta_kernel"] = {"name": TC_KERNELS[0],
                                      "profiled": delta}
         else:
-            entry["f32"] = {label: {"ms": ftimes[label]["fwd_f32_ms"],
-                                    "plain_ms": ftimes[label][
-                                        "fwd_f32_plain_ms"]}
-                            for label in ("coarse", "fine")}
+            entry["profiled"] = {TC_KERNELS[1]: k8_prof["mode2"]}
+            f32 = [{k: ftimes[label][f"fwd_f32_{k}"]
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                   for label in ("coarse", "fine")]
+            entry["f32"] = {
+                "name": f"{name} (fp32)", "kernel": TF32_KERNEL,
+                "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches1["film_mlp_fwd_f32"],
+                "max_abs_err": film_errs["film_mlp_fwd_f32"],
+                "library_ms": None, **f32[0],
+                "shape": f"B={FILM_B} P={FILM_COARSE_P} (coarse pass)",
+                "launched_by": "train_pigan, test.json, mode 1",
+                "fine": {"shape": f"B={FILM_B} P={FILM_FINE_P}", **f32[1]},
+                "sass": {TF32_KERNEL: {"HGMMA": sass[TF32_KERNEL][0],
+                                       "HGMMA_TF32": sass[TF32_KERNEL][2],
+                                       "HMMA": sass[TF32_KERNEL][1]}},
+                "profiled": {TF32_KERNEL: k8_prof["mode1"]}}
         kernels.append(entry)
 
     phase("split-K dW pass timings (bf16, CUDA events, median)")

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.nn import film_siren_apply, film_siren_init, torch_linear_default
-from ..ops.kernels.film_mlp import FilmTrunkFunction, fused_film_apply
+from ..ops.kernels.film_mlp import (FilmTrunkFunction, fused_film_apply,
+                                     k8_primal)
 from ..ops.rays import get_rays_flat
 from ..ops.render import render_rays
 
@@ -145,11 +146,11 @@ class FilmSirenNeRF(nn.Module):
     def _fused_mode(self, device) -> int:
         """Trunk dispatch for the standard shape, read from
         ``MSRA_TPU_FUSED_FILM`` as the JAX package reads it: 0 = plain, 1 =
-        hybrid (plain forward, K7 backward in bf16), 2 = K8 forward and K7
-        backward.  Unset, it is 1 for CUDA tensors and 0 for any other, as
-        the JAX package takes 0 off the TPU; a value that is set wins on
-        either device.  The kernels run on CUDA tensors and their plain
-        versions on CPU tensors."""
+        hybrid (K8 forward in fp32, K7 backward in bf16), 2 = K8 forward and
+        K7 backward, both in bf16.  Unset, it is 1 for CUDA tensors and 0
+        for any other, as the JAX package takes 0 off the TPU; a value that
+        is set wins on either device.  The kernels run on CUDA tensors and
+        their plain versions on CPU tensors."""
         cfg = self.cfg
         if not (cfg.hidden_dim == 256 and cfg.hidden_layers == 8
                 and cfg.w0 == 30.0):
@@ -187,11 +188,16 @@ class FilmSirenNeRF(nn.Module):
 
 
 def film_trunk_hybrid(trunk: FilmSirenNeRF, x, film, need_dx: bool = True):
-    """Hybrid mode: the plain trunk forward, recording no graph, and K7 in
-    bf16 as its backward (``_film_trunk_hybrid`` of the JAX package)."""
-    names, params = zip(*trunk.named_parameters())
-    return FilmTrunkFunction.apply(x, film, trunk._apply_plain, names,
-                                   trunk.cfg.use_dir, True, need_dx, *params)
+    """Hybrid mode (``_film_trunk_hybrid`` of the JAX package): the fp32
+    trunk forward, recording no graph, and K7 in bf16 as its backward.  The
+    JAX package takes XLA's fused forward, the fastest on its TPU; the port
+    takes K8 in fp32 (3xTF32 on the card, its plain version on the CPU),
+    the same function at the same accuracy."""
+    params = dict(trunk.named_parameters())
+    names = tuple(params)
+    return FilmTrunkFunction.apply(
+        x, film, k8_primal(params, trunk.cfg.use_dir, False), names,
+        trunk.cfg.use_dir, True, need_dx, *(params[n] for n in names))
 
 
 # ---------------------------------------------------------------------------

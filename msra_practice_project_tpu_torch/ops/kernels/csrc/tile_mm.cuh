@@ -1,7 +1,7 @@
 // Building blocks shared by the port's MLP kernels (nerf_mlp.cu, film_mlp.cu):
 // the per-tile layer product of the fp32 check mode on the CUDA cores, the
-// deterministic split-K dW = act^T delta with its fixed-order sum, and the
-// bf16 per-tile pass's machinery on wgmma (section "bf16 per-tile pass").
+// deterministic split-K dW = act^T delta with its fixed-order sum, the bf16
+// per-tile pass's machinery on wgmma (section "bf16 per-tile pass").
 //
 // fp32 (layer_mm): a group of NT threads (a whole CTA of THREADS, or one
 // warpgroup of it synchronised by its own named barrier) owns a tile of TM
@@ -774,17 +774,18 @@ __device__ __forceinline__ int a_offset(int p, int col) {
   return (col >> 6) * TC_A_BLOCK + swizzled(p, col & 63);
 }
 
-// out[i] = acc[4 jb + i] for i < 4 JB; jb a multiple of JB, known only at
-// run time (the registers are named at compile time in each case).
-template <int JB>
+// out[i] = acc[4 jb + i] for i < 4 JB, of NACC accumulators; jb a multiple
+// of JB, known only at run time (the registers are named at compile time in
+// each case).
+template <int JB, int NACC = HID / 2>
 __device__ __forceinline__ void acc_block(const float* acc, int jb,
                                           float* out) {
   constexpr int N = 4 * JB;
-  static_assert(HID / 2 / N <= 16, "acc_block has 16 cases");
+  static_assert(NACC % N == 0 && NACC / N <= 16, "acc_block has 16 cases");
   switch (jb / JB) {
 #define TC_ACC_CASE(B)                                \
   case B:                                             \
-    if constexpr ((B) * N < HID / 2) {                \
+    if constexpr ((B) * N < NACC) {                   \
       _Pragma("unroll") for (int i = 0; i < N; ++i)   \
         out[i] = acc[(B) * N + i];                    \
     }                                                 \

@@ -86,6 +86,14 @@ BIAS_OFF = GRAD_OFFS["b0"][0]
 # K7's scratch is bounded by running its passes over chunks of whole images.
 SCRATCH_BYTES = 2 ** 31
 
+# The fp32 K8 (csrc/film_mlp.cu, "fp32: K8 as 3xTF32 products on wgmma"): a
+# CTA owns one TF_TILE-point tile; its activations are a big and a small
+# half, each eight TF_A_BLOCK blocks of 64 points x 32 fp32 columns,
+# 128-byte swizzled; the weights stream in stages of 32 K x 256 output
+# columns of tf32_stack.
+TF_TILE = 64
+TF_A_BLOCK = TF_TILE * 32 * 4
+
 # The bf16 per-tile pass (csrc/film_mlp.cu, "bf16: the per-tile pass on
 # wgmma"): a CTA's two warpgroups own 64-point tiles 2 * cta and 2 * cta + 1
 # and share one TMA stream of weight slices (TC_STAGE_BYTES each: 32 rows of
@@ -166,12 +174,39 @@ def weight_stacks(w) -> tuple:
             torch.cat([t.t() for t in reversed(fwd)]).contiguous())
 
 
+def tf32_split(a: torch.Tensor) -> tuple:
+    """(big, small) of fp32 ``a``: big = a rounded to tf32 (to nearest, ties
+    away from zero: the bit arithmetic of ``cvt.rna.tf32.f32``, the low 13
+    bits zero), small = a - big (exact), so big + small == a."""
+    bits = a.float().contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return big, a - big
+
+
+def tf32_stack(w) -> torch.Tensor:
+    """The fp32 K8's weight stream, ``[2 * 8 * 256, 256]`` fp32: the forward
+    products' weights [W1, ..., W7, W8a] K-major (each ``W^T`` of the packed
+    ``[in, out]``: one row of 256 inputs per output column) rounded to tf32,
+    then their remainders (``tf32_split``).  Built on the weights' device."""
+    d = dict(zip(PACK_KEYS, w))
+    fwd = torch.cat([d[f"W{l}"].t() for l in range(1, 8)] + [d["W8a"].t()])
+    return torch.cat(tf32_split(fwd.float())).contiguous()
+
+
 def cta_tiles(n_tiles: int) -> list:
     """The bf16 pass's CTAs, each as its two warpgroups' tiles (None for a
     warpgroup without one: the second of the last CTA when n_tiles is
     odd)."""
     return [(2 * c, 2 * c + 1 if 2 * c + 1 < n_tiles else None)
             for c in range((n_tiles + 1) // 2)]
+
+
+def tf32_a_offset(p: int, col: int) -> int:
+    """Byte offset of (point p, column col) in either half of the fp32 K8's
+    activations (``tf_a_offset``): the 32-column block, then the point's
+    128-byte row with its 16-byte chunks permuted by the 128-byte swizzle."""
+    return ((col // 32) * TF_A_BLOCK + p * 128 + ((((col >> 2) ^ p) & 7) << 4)
+            + (col & 3) * 4)
 
 
 def a_buffer_offset(p: int, col: int) -> int:
@@ -353,7 +388,9 @@ def _stream(device):
 def film_mlp_fwd(x: torch.Tensor, film: torch.Tensor, w,
                  bf16: bool = True) -> torch.Tensor:
     """K8: out ``[B, P, 8]`` fp32.  CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/film_mlp.cu``."""
+    tensors launch ``csrc/film_mlp.cu``: ``film_fwd_tc_kernel`` in bf16,
+    ``film_fwd_tf32_kernel`` (3xTF32) in fp32, counted in ``launches`` and,
+    in fp32, also in ``launches_f32``."""
     if x.device.type == "cpu":
         return film_mlp_fwd_plain(x, film, w, bf16)
     if x.device.type != "cuda":
@@ -361,19 +398,19 @@ def film_mlp_fwd(x: torch.Tensor, film: torch.Tensor, w,
     n_img, n_pts, wp = _check_inputs(x, film, w, bf16)
     out = torch.empty((n_img, n_pts, OUT_PAD), dtype=torch.float32,
                       device=x.device)
-    stack = weight_stacks(w)[0] if bf16 else None
+    stack = weight_stacks(w)[0] if bf16 else tf32_stack(w)
     with torch.cuda.device(x.device):
         err = _lib().film_mlp_fwd(x.data_ptr(), film.data_ptr(), wp,
-                                  stack.data_ptr() if bf16 else None,
-                                  out.data_ptr(), n_img, n_pts, int(bf16),
-                                  _stream(x.device))
+                                  stack.data_ptr(), out.data_ptr(), n_img,
+                                  n_pts, int(bf16), _stream(x.device))
     if err:
         raise RuntimeError(f"film_mlp_fwd launch failed: CUDA error {err}")
     film_mlp_fwd.launches += 1
+    film_mlp_fwd.launches_f32 += not bf16
     return out
 
 
-film_mlp_fwd.launches = 0
+film_mlp_fwd.launches = film_mlp_fwd.launches_f32 = 0
 
 
 def grad_tasks() -> list:
@@ -464,6 +501,7 @@ KERNELS = (film_mlp_fwd, film_mlp_bwd)
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    film_mlp_fwd.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -473,9 +511,9 @@ def reset_launch_counts() -> None:
 
 class FilmTrunkFunction(torch.autograd.Function):
     """The FiLM trunk with K7 as its backward.  ``primal(x, film)`` computes
-    the forward: K8 for ``fused_film_apply``, the plain trunk for the hybrid
-    mode (models/pigan.py); either way no graph is recorded, and the
-    residuals are only the parameters, x and film."""
+    the forward through K8 (``k8_primal``): in ``fused_film_apply``'s
+    precision, or in fp32 for the hybrid mode of models/pigan.py; no graph
+    is recorded, and the residuals are only the parameters, x and film."""
 
     @staticmethod
     def forward(ctx, x, film, primal, names, use_dir, bf16, need_dx,
@@ -513,15 +551,22 @@ def fused_film_apply(params: dict, x: torch.Tensor, film: torch.Tensor,
     -> ``[B, ..., 4]``, differentiable in the parameters, x and film.
     ``need_dx=False`` skips the input gradient (zeros are returned for it):
     only for callers whose x carries no gradient."""
-    n_img = film.shape[0]
+    names = tuple(params)
+    return FilmTrunkFunction.apply(x, film, k8_primal(params, use_dir, bf16),
+                                   names, use_dir, bf16, need_dx,
+                                   *(params[n] for n in names))
+
+
+def k8_primal(params: dict, use_dir: bool, bf16: bool):
+    """``primal(x, film)``: the trunk through K8 (``film_mlp_fwd`` in bf16
+    or fp32), x ``[B, ..., 6]``, film ``[B, 9, 512]`` -> ``[B, ..., 4]``."""
 
     def primal(x, film):
+        n_img = film.shape[0]
         packed = pack_film_params(params, use_dir)
         w = kernel_weights([packed[k] for k in PACK_KEYS], bf16)
         x_pad, p = pad_points(x, n_img)
         out = film_mlp_fwd(x_pad, film.contiguous().float(), w, bf16)
         return out[:, :p, :4].reshape(*x.shape[:-1], 4)
 
-    names = tuple(params)
-    return FilmTrunkFunction.apply(x, film, primal, names, use_dir, bf16,
-                                   need_dx, *(params[n] for n in names))
+    return primal

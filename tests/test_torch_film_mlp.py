@@ -245,8 +245,8 @@ def test_fused_function_fp32_matches_autograd_on_cpu(need_dx):
 @pytest.mark.parametrize("mode", [1, 2])
 def test_trunk_modes_route_through_the_kernels_on_cpu(monkeypatch, mode):
     """MSRA_TPU_FUSED_FILM=1 (the default) and 2 on CPU tensors: the forward
-    is the plain trunk (mode 1) or K8's plain version in bf16 (mode 2), and
-    every gradient is K7's plain version in bf16, unpacked."""
+    is K8's plain version in fp32 (mode 1) or in bf16 (mode 2), and every
+    gradient is K7's plain version in bf16, unpacked."""
     _, t = _trunk(True)
     params = list(t.parameters())
     x, film = _inputs(2, 50, 11)
@@ -257,8 +257,8 @@ def test_trunk_modes_route_through_the_kernels_on_cpu(monkeypatch, mode):
 
     x_pad, f, w = _padded(t, x, film, True, True)
     with torch.no_grad():
-        out = (t._apply_plain(torch.from_numpy(x), f) if mode == 1
-               else K.film_mlp_fwd(x_pad, f, w, True)[:, :50, :4])
+        out = K.film_mlp_fwd(x_pad, f, _padded(t, x, film, True, mode == 2)[2],
+                             mode == 2)[:, :50, :4]
     dy_pad = torch.zeros(2, 64, 8)
     dy_pad[:, :50, :4] = dy.reshape(2, 50, 4)
     dx, dfilm, dw = K.film_mlp_bwd(x_pad, f, dy_pad, w, True, True)
@@ -267,6 +267,67 @@ def test_trunk_modes_route_through_the_kernels_on_cpu(monkeypatch, mode):
         g[n] for n, _ in t.named_parameters()]
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.reshape(a.shape).numpy())
+
+
+def test_mode1_primal_matches_jax_hybrid_primal_on_cpu(monkeypatch):
+    """Mode 1's forward (K8's plain fp32 version on CPU tensors) against the
+    JAX package's _film_trunk_hybrid primal (its XLA trunk) at 2e-5."""
+    monkeypatch.setenv("MSRA_TPU_FUSED_FILM", "1")
+    p, t = _trunk(True)
+    x, film = _inputs(2, 50, 14)
+    want = np.asarray(jpigan._film_trunk_hybrid(
+        p, jnp.asarray(x), jnp.asarray(film), True, True))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got = t(torch.from_numpy(x), torch.from_numpy(film)).numpy()
+    assert got.shape == want.shape == (2, 50, 4)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    assert K.film_mlp_fwd.launches == K.film_mlp_fwd.launches_f32 == 0
+
+
+def _tf32_trunc(a):
+    """a with its low 13 bits cleared: the tf32 value the tensor cores read
+    from an fp32 container."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(passes):
+    """K8's products as the fp32 kernel computes them, for K._mm: the K =
+    256 products (W1..W7, W8a) as 3 tf32 products (big(a) big(b) + small(a)
+    big(b) + big(a) small(b), small truncated as the tensor cores read it)
+    or as 1 (big(a) big(b)); the K = 8 products and the heads in fp32."""
+
+    def mm(a, b, bf16):
+        assert not bf16
+        if tuple(b.shape) != (K.HID, K.HID):
+            return a @ b
+        (ab, as_), (bb, bs) = K.tf32_split(a), K.tf32_split(b)
+        if passes == 1:
+            return ab @ bb
+        return _tf32_trunc(as_) @ bb + ab @ bb + ab @ _tf32_trunc(bs)
+
+    return mm
+
+
+def test_3xtf32_emulation_meets_the_fp32_gate_and_1xtf32_does_not(
+        monkeypatch):
+    """The plain fp32 K8 with every K = 256 product emulated as the fp32
+    kernel computes it (3xTF32) stays within K8's fp32 gate (1e-4 of
+    max|ref|, PERF.md) of the exact plain version on a JAX-initialised
+    trunk; one tf32 product per K = 256 product does not (the w0 = 30 sine
+    amplifies its 10-bit mantissa)."""
+    _, t = _trunk(True)
+    x, film = _inputs(2, 1024, 15)
+    x_pad, f, w = _padded(t, x, film, True, False)
+    ref = K.film_mlp_fwd_plain(x_pad, f, w, False)
+    scale = float(ref.abs().max())
+    errs = {}
+    for passes in (3, 1):
+        monkeypatch.setattr(K, "_mm", _mm_tf32(passes))
+        errs[passes] = float((K.film_mlp_fwd_plain(x_pad, f, w, False)
+                              - ref).abs().max()) / scale
+    assert errs[3] <= 1e-4, errs
+    assert errs[1] > 1e-4, errs
 
 
 def test_unbatched_film_takes_the_plain_path(monkeypatch):

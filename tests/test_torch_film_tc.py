@@ -54,6 +54,78 @@ def test_weight_stacks_hold_each_products_weights_in_stream_order(use_dir):
         assert torch.equal(bwd[rows], bf(want_b)), prod
 
 
+@pytest.mark.parametrize("use_dir", [True, False])
+def test_tf32_stack_holds_each_products_weights_transposed_in_stream_order(
+        use_dir):
+    """The fp32 K8's producer reads rows (half * 2048 + product * 256 + n)
+    of the tf32 stack: product p (layer p + 1, W8a for p = 7) as W^T, output
+    column n's 256 inputs in one row (K-major); half 0 = W^T rounded to tf32
+    (the low 13 bits zero), half 1 = the remainder, the two summing to W^T
+    exactly."""
+    p = jpigan.FilmSirenNeRF(jpigan.FilmSirenNeRFConfig(use_dir=use_dir)).init(
+        jax.random.PRNGKey(4))
+    t = pigan.FilmSirenNeRF(pigan.FilmSirenNeRFConfig(use_dir=use_dir))
+    t.load_state_dict(state_dict_from_params(
+        jax.tree_util.tree_map(np.asarray, p)))
+    packed = K.pack_film_params(dict(t.named_parameters()), use_dir)
+    w = K.kernel_weights([packed[k].detach() for k in K.PACK_KEYS], False)
+    stack = K.tf32_stack(w)
+    assert stack.shape == (2 * 8 * K.HID, K.HID)
+    assert stack.dtype == torch.float32 and stack.is_contiguous()
+    big, small = stack[:8 * K.HID], stack[8 * K.HID:]
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    ref = JK.pack_film_params(p, use_dir)
+    layer_key = {l: f"W{l}" for l in range(1, 8)} | {8: "W8a"}
+    for prod in range(8):
+        want = np.ascontiguousarray(
+            np.asarray(ref[layer_key[prod + 1]]).astype(np.float32).T)
+        rows = slice(prod * K.HID, (prod + 1) * K.HID)
+        np.testing.assert_array_equal((big[rows] + small[rows]).numpy(), want)
+        # big is the nearest tf32 value: within half a tf32 ulp of W
+        ulp = np.exp2(np.floor(np.log2(np.abs(want) + 1e-38)) - 10)
+        assert np.all(np.abs(small[rows].numpy()) <= ulp / 2), prod
+
+
+def test_tf32_split_rounds_to_nearest_ties_away_like_cvt_rna():
+    """cvt.rna.tf32.f32's rounding: to the nearest value with 10 mantissa
+    bits, a tie (bit 12 set, bits 0-11 clear) away from zero, exactly."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    vals = np.array([one, one + ulp / 2, one + ulp / 2 + 2 ** -23,
+                     one + ulp / 2 - 2 ** -23, one + 1.5 * ulp,
+                     -(one + ulp / 2), 3.0e-30, -7.25, 0.0], dtype=np.float32)
+    want = np.array([one, one + ulp, one + ulp, one, one + 2 * ulp,
+                     -(one + ulp), None, -7.25, 0.0], dtype=object)
+    big, small = K.tf32_split(torch.from_numpy(vals))
+    for v, b, s, wv in zip(vals, big.numpy(), small.numpy(), want):
+        assert np.float32(b) + np.float32(s) == v
+        if wv is not None:
+            assert b == np.float32(wv), (v, b, wv)
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+
+
+def test_tf32_a_offset_is_the_128_byte_swizzle_and_a_bijection():
+    """Point p's 32 fp32 columns of a block fill one 128-byte row
+    (K-major), its 16-byte chunks permuted as TMA's 128-byte swizzle
+    permutes them, each 8 KB block covered once; the CUDA source computes
+    the same address and sizes."""
+    p = np.arange(K.TF_TILE)[:, None]
+    col = np.arange(K.HID)[None, :]
+    got = np.vectorize(K.tf32_a_offset)(p, col)
+    linear = (col // 32) * K.TF_A_BLOCK + p * 128 + (col % 32) * 4
+    np.testing.assert_array_equal(got, linear ^ (((linear >> 7) & 7) << 4))
+    assert K.TF_A_BLOCK == K.TF_TILE * 128 and K.TF_A_BLOCK % 1024 == 0
+    np.testing.assert_array_equal(np.sort(got.ravel()),
+                                  np.arange(0, 8 * K.TF_A_BLOCK, 4))
+    src = _source("film_mlp.cu")
+    assert ("return (col >> 5) * TF_A_BLOCK + p * 128 + ((((col >> 2) ^ p) "
+            "& 7) << 4)\n         + (col & 3) * 4;") in src
+    assert "TF_STAGE_BYTES = HID * TF_KS * 4;" in src
+    assert "TF_A_BLOCK = TF_TILE * TF_KS * 4;" in src
+    for name, v in (("TF_TILE", K.TF_TILE), ("TF_KS", 32)):
+        assert re.search(rf"\b{name} = {v};", src), name
+
+
 def test_a_buffer_offset_is_the_128_byte_swizzle_and_a_bijection():
     """Point p's 64 columns of a block fill one 128-byte row (K-major), the
     row's 16-byte chunks permuted as TMA's 128-byte swizzle permutes them
@@ -104,5 +176,14 @@ def test_film_probe_edits_apply_to_the_source():
     assert all(out[k] != src for k in out if k != "as_is")
     assert src.count(tool._SELECT) == 1 and src.count(tool._JB) == 1
     assert src.count(tool._WALK) == 2  # the forward and backward epilogues
+    # the fp32 K8's epilogue walk, its block size and its three products
+    assert src.count(tool._TF_WALK) == 1 and src.count(tool._TF_PRODUCT) == 3
+    assert src.count(tool._TF_JB) == 1
+
+    def tf32_kernel(text):
+        return text.split("film_fwd_tf32_kernel(")[1].split("\n}\n")[0]
+
+    assert tf32_kernel(src).count("tc_regs_") == 2
+    assert "tc_regs_" not in tf32_kernel(out["tf32_no_setmaxnreg"])
     assert "else if (r < -HALF_PI)" in out["branchy"].split(
         "trunk_sin(float v)")[0]
