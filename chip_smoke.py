@@ -35,6 +35,14 @@ NeRF (K1, K2):
      (the profiler's own host cost shows as the gap to phase 3's ms/step),
      the bf16 per-tile kernels (K1's, K2's delta chain) and the split-K pass
      by name in ms per step;
+  4b. the NeRF quality gate: tools/torch_validate_nerf.py's main (the easy
+     analytic scene rendered at 64x64 and trained for 3000 steps, the
+     recipe of BASELINE.md's 37.5 dB) in this process; K1 and K2, K2's
+     delta chain and its split-K pass must be launched twice per step, and
+     the held-out test views' PSNR (plain models) must exceed 28 dB; then
+     eval.test_nerf.run on the trained experiment (2 views per split):
+     test.json with the JAX test_nerf's keys, lpips null, perceptual_metric
+     "1-msssim";
   5. K1, K2 and K2's delta chain alone per launch at both shapes beside the
      plain version and the least time the card could take;
 The rest of the fused NeRF MLP (K3, K6, K5, K4):
@@ -845,14 +853,77 @@ def main_path(torch, K, iterations, startup, timed):
     return launches, ms, rays
 
 
-def load_roofline_tool():
-    """tools/torch_roofline_nerf.py as a module."""
+def load_tool(name):
+    """tools/<name>.py as a module."""
     spec = importlib.util.spec_from_file_location(
-        "torch_roofline_nerf", os.path.join(ROOT, "tools",
-                                            "torch_roofline_nerf.py"))
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     return tool
+
+
+QUALITY_STEPS, QUALITY_SIZE = 3000, 64   # BASELINE.md's analytic recipe
+TEST_JSON_KEYS = {"dist", "psnr", "ssim", "lpips", "perceptual",
+                  "perceptual_metric"}
+
+
+def quality_path(torch, K):
+    """The NeRF quality gate: tools/torch_validate_nerf.py's main on the
+    easy analytic scene (3000 steps at 64x64, run in this process), with
+    every launch counter set to 0 just before it and read just after: K1
+    and K2, K2's delta chain and its split-K pass twice per step, K3-K6
+    never.  Test PSNR must exceed the tool's 28 dB.  Then
+    eval.test_nerf.run on the trained experiment (2 views per split), whose
+    test.json must hold the JAX test_nerf's keys, lpips null (no weights) and
+    perceptual_metric "1-msssim"."""
+    from msra_practice_project_tpu_torch.eval import test_nerf
+    tool = load_tool("torch_validate_nerf")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as out:
+        reset_counts()
+        res = tool.main(QUALITY_STEPS, QUALITY_SIZE, "easy", out_dir=out)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in K.KERNELS}
+        launches["dw_splitk"] = dw_launches()
+        launches["nerf_mlp_deltas"] = K.nerf_mlp_deltas.launches
+        steps = res["steps"]
+        gate_s = time.perf_counter() - t0
+        data = test_nerf.run(res["log_path"], None, max_views=2)
+        with open(os.path.join(res["log_path"], "test.json")) as f:
+            written = json.load(f)
+    seconds = time.perf_counter() - t0
+    q = {"steps": steps, "size": QUALITY_SIZE, "scene": "easy",
+         "train_psnr": res["train"][0], "train_ssim": res["train"][1],
+         "test_psnr": res["test"][0], "test_ssim": res["test"][1],
+         "ms_per_step": res["ms_per_step"], "gate_seconds": gate_s,
+         "phase_seconds": seconds,
+         "test_nerf_psnr_train": data["psnr"]["train"],
+         "test_nerf_psnr_in": data["psnr"]["in"],
+         "test_nerf_perceptual_metric": data["perceptual_metric"]}
+    print(f"  train PSNR {q['train_psnr']:.3f} dB SSIM "
+          f"{q['train_ssim']:.4f}; test PSNR {q['test_psnr']:.3f} dB SSIM "
+          f"{q['test_ssim']:.4f}; {q['ms_per_step']:.3f} ms/step (CUDA "
+          f"events over all {steps} steps); gate {gate_s:.1f} s (dataset, "
+          f"training, eval), phase "
+          f"{seconds:.1f} s; launches {launches}", flush=True)
+    want = {**{k.__name__: 2 * steps if k in (
+        K.nerf_mlp_fwd_save, K.nerf_mlp_bwd_saved) else 0
+        for k in K.KERNELS}, "dw_splitk": 2 * steps,
+        "nerf_mlp_deltas": 2 * steps}
+    if launches != want:
+        raise SystemExit(f"quality path launches {launches} != {want}")
+    if not res["test"][0] > tool.PASS_DB:
+        raise SystemExit(f"NeRF quality gate failed: test PSNR "
+                         f"{res['test'][0]:.3f} dB <= {tool.PASS_DB} dB")
+    views = [v for split in ("train", "in", "ex")
+             for v in written["psnr"][split]]
+    if not (set(written) == TEST_JSON_KEYS and views
+            and all(v == v and abs(v) != float("inf") for v in views)
+            and all(v is None for split in ("train", "in", "ex")
+                    for v in written["lpips"][split])
+            and written["perceptual_metric"] == "1-msssim"):
+        raise SystemExit(f"test.json check failed: {written}")
+    return q
 
 
 def roofline_path(torch, K, tool):
@@ -1297,6 +1368,12 @@ def main() -> int:
     prof_ms, busy, idle, named = profiled_window(torch, 30, 10, 20)
     torch.cuda.synchronize()
 
+    phase(f"NeRF quality: tools/torch_validate_nerf.py, easy scene, "
+          f"{QUALITY_STEPS} steps at {QUALITY_SIZE}x{QUALITY_SIZE} (K1/K2), "
+          f"gate test PSNR > 28 dB; then eval.test_nerf on it")
+    summary["nerf_quality"] = quality_path(torch, K)
+    torch.cuda.synchronize()
+
     phase("K1/K2 and K2's delta chain timings (bf16, CUDA events, median)")
     k12 = ("nerf_mlp_fwd_save", "nerf_mlp_bwd_saved", "nerf_mlp_deltas")
     times = {}
@@ -1331,7 +1408,7 @@ def main() -> int:
 
     # the two passes' shapes and the roofline path's own (in bf16 K5 runs
     # that one in two chunks)
-    tool = load_roofline_tool()
+    tool = load_tool("torch_roofline_nerf")
     for n in (COARSE_N, FINE_N, ROOFLINE_BATCH * tool.PTS_PER_RAY):
         phase(f"K3/K6 vs plain version at N={n}")
         for name, err in check_fwd(torch, K, n).items():

@@ -39,3 +39,13 @@ def imread(path: str, resize: float | tuple | None = None) -> np.ndarray:
         else:
             img = img.resize(tuple(resize), Image.LANCZOS)
     return np.array(img, dtype=np.float32) / 255.0
+
+
+def mimwrite(path: str, frames, duration: float = 0.1) -> None:
+    """Write an animated GIF (the reference's demos use imageio.mimwrite)."""
+    imgs = []
+    for f in frames:
+        f = _numpy(f)
+        imgs.append(Image.fromarray(f if f.dtype == np.uint8 else to8b(f)))
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=int(duration * 1000), loop=0)

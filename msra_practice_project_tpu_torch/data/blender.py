@@ -2,6 +2,8 @@
 ``msra_practice_project_tpu/data/blender.py``): transforms_{train,val,test}.json
 plus PNGs, with the reference's view-range filter, train-index lists,
 ``target_num`` subsampling and the val 'in'/'ex' split.  Host-side numpy/PIL.
+``show_data_distribution`` plots the camera positions (matplotlib, imported
+only there).
 """
 
 from __future__ import annotations
@@ -141,3 +143,39 @@ def make_synthetic_blender(tmp_dir: str, n_train=3, n_val=2, n_test=2,
         with open(os.path.join(tmp_dir, f"transforms_{split}.json"), "w") as f:
             json.dump(meta, f)
     return tmp_dir
+
+
+def show_data_distribution(poses: dict, show_test: bool = False,
+                           save_path: str | None = None):
+    """3D scatter of camera positions per split
+    (ref: nerf/data_loader.py:156-197).  Saves a PNG when ``save_path`` is
+    given (headless), else ``plt.show()``.  matplotlib is imported here, so
+    nothing else of the package needs it."""
+    import matplotlib
+    if save_path is not None:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(4, 4))
+    ax = fig.add_subplot(111, projection="3d")
+    ax.scatter(poses["train"][:, 0, 3], poses["train"][:, 1, 3],
+               poses["train"][:, 2, 3], c="m", marker="o", s=5,
+               label="train")
+    for split, c in [("in", "g"), ("ex", "b")]:
+        p = poses["val"][split]
+        if p.shape[0] > 0:
+            ax.scatter(p[:, 0, 3], p[:, 1, 3], p[:, 2, 3], c=c, marker="s",
+                       s=5, label=f"val_{split}")
+    if show_test:
+        p = poses["test"]
+        ax.scatter(p[:, 0, 3], p[:, 1, 3], p[:, 2, 3], c="y", marker="^",
+                   s=5, label="test")
+    ax.set_xlim([-5, 5]); ax.set_ylim([-5, 5]); ax.set_zlim([-5, 5])
+    ax.set_xlabel("X"); ax.set_ylabel("Y"); ax.set_zlabel("Z")
+    ax.view_init(elev=120, azim=-90)
+    plt.legend()
+    if save_path is not None:
+        plt.savefig(save_path, dpi=300)
+        plt.close(fig)
+    else:
+        plt.show()

@@ -1,6 +1,6 @@
 """Hierarchical (coarse/fine) volume rendering (port of
-``msra_practice_project_tpu/ops/render.py``: ``render_rays`` and
-``render_image``).
+``msra_practice_project_tpu/ops/render.py``: ``render_rays``,
+``render_image`` and ``render_video``).
 
 The model is a function ``model_fn(x[..., 6]) -> [..., 4]``.  Randomness is
 explicit: a ``torch.Generator`` draws the stratified jitter, or the caller
@@ -9,6 +9,7 @@ hands the jitter in (the parity tests rebuild JAX's draws).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .composite import raw_to_outputs
@@ -71,21 +72,28 @@ def render_image(width, height, focal, c2w, near, far, coarse_fn, fine_fn,
                  coarse_sample_num: int, fine_sample_num: int,
                  chunk: int = 16384, perturb: bool = True,
                  white_bkgd: bool = True, *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None,
+                 jitter: torch.Tensor | None = None, device=None):
     """Full-frame render, tiled over fixed-size ray blocks
     (ref: nerf/render.py:150-167).  Returns (rgb ``[H,W,3]``, depth
-    ``[H,W,1]``, acc ``[H,W,1]``) tensors on ``device``."""
+    ``[H,W,1]``, acc ``[H,W,1]``) tensors on ``device``.  ``jitter``
+    (``[H*W, coarse_sample_num]``, pixels in row-major order) replaces the
+    generator's stratified draws."""
     chunk = min(chunk, width * height)
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
     rays_o, rays_d = get_rays_flat(width, height, focal, c2w)
     rays_o, n = _pad_to_multiple(rays_o, chunk)
     rays_d, _ = _pad_to_multiple(rays_d, chunk)
+    if jitter is not None:
+        jitter, _ = _pad_to_multiple(jitter.to(rays_o.device), chunk)
     rgbs, depths, accs = [], [], []
     for lo in range(0, rays_o.shape[0], chunk):
         out = render_rays(rays_o[lo:lo + chunk], rays_d[lo:lo + chunk], near,
                           far, coarse_fn, fine_fn, coarse_sample_num,
                           fine_sample_num, perturb, white_bkgd,
-                          generator=generator)
+                          generator=generator,
+                          jitter=None if jitter is None
+                          else jitter[lo:lo + chunk])
         rgbs.append(out["rgb_fine"])
         depths.append(out["depth_fine"])
         accs.append(out["acc_fine"])
@@ -93,3 +101,23 @@ def render_image(width, height, focal, c2w, near, far, coarse_fn, fine_fn,
     depth = torch.cat(depths)[:n].reshape(height, width, 1)
     acc = torch.cat(accs)[:n].reshape(height, width, 1)
     return rgb, depth, acc
+
+
+def render_video(width, height, focal, poses, near, far, coarse_fn, fine_fn,
+                 coarse_sample_num: int, fine_sample_num: int,
+                 chunk: int = 16384, perturb: bool = True, *,
+                 generator: torch.Generator | None = None, device=None):
+    """Render a pose sequence (ref: nerf/render.py:170-182); ``generator``
+    draws every frame's jitter, frame after frame.  Returns stacked numpy
+    arrays (rgb ``[F,H,W,3]``, depth and acc ``[F,H,W,1]``); each frame
+    moves to the host as it completes."""
+    rgbs, depths, accs = [], [], []
+    for p in poses:
+        rgb, depth, acc = render_image(
+            width, height, focal, p, near, far, coarse_fn, fine_fn,
+            coarse_sample_num, fine_sample_num, chunk, perturb,
+            generator=generator, device=device)
+        rgbs.append(rgb.cpu().numpy())
+        depths.append(depth.cpu().numpy())
+        accs.append(acc.cpu().numpy())
+    return np.stack(rgbs), np.stack(depths), np.stack(accs)

@@ -192,6 +192,9 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     os.makedirs(log_path, exist_ok=True)
 
     images, poses, width, height, focal, train_idx = load_dataset(config)
+    if config.get("data_show_distribution", False):
+        blender.show_data_distribution(
+            poses, save_path=os.path.join(log_path, "distribution.png"))
     config["data_train_idx"] = train_idx
     path = save_config(config, log_path)
     log_print(f"Config file write to: {path}")

@@ -65,3 +65,15 @@ def params_from_state_dict(state: dict) -> dict:
 
     return freeze(root)
 
+
+def lpips_state_dict_from_params(params) -> dict:
+    """The JAX package's LPIPS params (``{"convs": [(w, b)] * 5, "lins":
+    [w] * 5}``, OIHW) -> the ``state_dict`` of the port's ``core.lpips.LPIPS``
+    (``convs.{i}.weight``/``bias``, ``lins.{i}.weight``)."""
+    out = {}
+    for i, (w, b) in enumerate(params["convs"]):
+        out[f"convs.{i}.weight"] = _to_port("weight", w)
+        out[f"convs.{i}.bias"] = _to_port("bias", b)
+    for i, w in enumerate(params["lins"]):
+        out[f"lins.{i}.weight"] = _to_port("weight", w)
+    return out
