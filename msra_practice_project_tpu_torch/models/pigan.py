@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 import os
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
@@ -218,6 +218,17 @@ class GeneratorConfig:
     vertical_std: float = 0.15
     use_dir: bool = True
 
+    @property
+    def focal(self) -> float:
+        return self.resolution / 2.0 / math.tan(
+            self.fov / 2.0 * math.pi / 180.0)
+
+    def with_resolution(self, resolution: int) -> "GeneratorConfig":
+        return replace(self, resolution=resolution)
+
+    def with_render(self, **kw) -> "GeneratorConfig":
+        return replace(self, **kw)
+
 
 def camera_poses(theta: torch.Tensor, phi: torch.Tensor,
                  radius: float = 1.0) -> torch.Tensor:
@@ -273,19 +284,27 @@ class Generator(nn.Module):
 
     def render_film(self, film, theta, phi, resolution: int | None = None,
                     coarse_samples: int | None = None,
-                    fine_samples: int | None = None, *,
+                    fine_samples: int | None = None, fov=None, *,
                     generator=None, jitter=None):
         """Render film codes ``[B, n_film, 2h]`` at poses (theta, phi)
         ``[B]`` -> ``[B, H, W, 3]``.  The trunk is both the coarse and the
-        fine model (pi_GAN/modules.py:160-161).  ``jitter`` ``[B, H*W,
+        fine model (pi_GAN/modules.py:160-161).  ``fov`` (degrees, a float
+        or a 0-d tensor) replaces ``cfg.fov``; ``jitter`` ``[B, H*W,
         coarse]`` replaces the stratified draws from ``generator``."""
         cfg = self.cfg
         res = resolution or cfg.resolution
         nc = coarse_samples or cfg.coarse_samples
         nf = fine_samples or cfg.fine_samples
-        # focal in fp32, as the JAX package computes it
-        focal = res / 2.0 / torch.tan(torch.tensor(
-            cfg.fov / 2.0 * math.pi / 180.0, dtype=torch.float32))
+        # focal in fp32, as the JAX package computes it: from cfg.fov's
+        # angle rounded once, or from a given fov in fp32 arithmetic (JAX
+        # traces that argument as an fp32 scalar)
+        if fov is None:
+            half = torch.tensor(cfg.fov / 2.0 * math.pi / 180.0,
+                                dtype=torch.float32)
+        else:
+            half = torch.as_tensor(fov, dtype=torch.float32) / 2.0 \
+                * math.pi / 180.0
+        focal = res / 2.0 / torch.tan(half)
         rays_o, rays_d = get_rays_flat(res, res, focal,
                                        camera_poses(theta, phi))
 

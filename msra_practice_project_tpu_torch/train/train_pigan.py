@@ -4,8 +4,8 @@
   * The generator renders the whole latent batch in one computation; on CUDA
     its FiLM trunk runs through the kernels of ``ops/kernels/film_mlp.py``
     in the mode ``MSRA_TPU_FUSED_FILM`` picks (models/pigan.py: 1, the
-    default, is the plain forward with K7 as its backward; 2 is K8 forward
-    and K7 backward).
+    default, is K8 forward in fp32 with K7 in bf16 as its backward; 2 is K8
+    forward and K7 backward, both in bf16).
   * Non-saturating losses with the reference's sign convention
     (pi_GAN/utils.py:28-29, train.py:117,133): loss_f(u) = -softplus(-u),
     d_loss = -E[loss_f(D(fake))] - E[loss_f(-D(real))] + lambda * R1,

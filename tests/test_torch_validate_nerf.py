@@ -138,8 +138,8 @@ def test_cli_options():
 
 
 def test_tool_imports_neither_jax_nor_matplotlib():
-    """The tool, chip_smoke.py and every module of the port (the eval
-    scripts included) load no JAX, no module of the JAX package and no
+    """The quality-gate tools (NeRF and pi-GAN), chip_smoke.py and every
+    module of the port (the eval scripts included) load no JAX, no module of the JAX package and no
     matplotlib: the card's machine has neither."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -147,9 +147,9 @@ import msra_practice_project_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke  # noqa: F401
-spec = importlib.util.spec_from_file_location(
-    "t", "tools/torch_validate_nerf.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ("torch_validate_nerf", "torch_validate_pigan"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "matplotlib", "msra_practice_project_tpu")
        or m.startswith(("jax.", "jaxlib.", "matplotlib.",
