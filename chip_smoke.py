@@ -119,6 +119,34 @@ mesh extraction and latent inversion):
      kernel; every logged loss finite and the mean of the last 100 below
      the first 100's; then the final 128x128 multiview and the 40-frame
      orbit GIF, seconds each.
+The SIREN stack (no kernel: the JAX package runs these MLPs as plain XLA,
+the port as plain PyTorch in strict fp32), every counter set to 0 first:
+  21. train_img at each kind's config (siren, tanh, relu, relu_pe: batch
+     65,536 on the 256x256 synthetic image, 3 x 256, lr 1e-4), 10 + 100
+     steps: ms/step over the last 100 (CUDA events), pixels/s, peak device
+     memory; the loss must be finite and fall, the PNG and checkpoint
+     written;
+  22. train_sdf at siren_sdf_1.json's recipe (65,536 on- + 65,536
+     off-surface points of the 100,000-point synthetic sphere), siren and
+     relu_pe, 5 + 50 steps: ms/step, peak memory; then the final mesh (n
+     512 for siren, 128 for relu_pe, whose untrained field crosses zero in
+     most voxels): the SDF grid's and the marching's seconds, vertices;
+  23. train_nerf.train at lego_siren.json's recipe (the SIREN NeRF, 1024
+     rays x 64 + 128 samples), 30 steps, the last 20 timed, then again with
+     torch.profiler on for them: ms/step, rays/s, busy, idle share, GEMM
+     vs the rest; the loss must be finite and fall (mean of the last 5
+     below the first 5's);
+     profiles of the image and the SDF step (siren kind): busy, idle
+     share, GEMM vs the rest; the sine alone (forward + backward at
+     [65,536, 256]) and its share of the device time;
+     no kernel of the port (K1-K8, K2's chain, the split-K pass) may have
+     launched;
+  24. tools/torch_validate_img.py 1500 (siren > 40 dB, relu_pe > 28 dB)
+     and tools/torch_validate_sdf.py 4000 (mean |r - 0.6| < 1 voxel, p95 <
+     3), in this process, with no kernel launch; then eval.test_img and
+     eval.test_sdf on their runs.  The SIREN NeRF gate
+     (tools/torch_validate_nerf.py 5000 64 --siren) runs by hand: at ~115
+     ms a step it would take this run past 900 s.
 The split-K pass's launches are counted over every path: 2 per NeRF step
 (K2's), 1 per K5 chunk, 1 per K7 chunk; the delta chain's: 2 per NeRF step
 (K2's), 1 per bf16 K5 chunk.
@@ -846,17 +874,18 @@ def device_kernels(prof):
                     if e.get("cat") == "kernel" and "dur" in e]
 
 
-def run_train(torch, iterations, startup, timed, window=None):
-    """train_nerf.train on the lego recipe (synthetic scene at 400x400) in a
-    temporary directory; its last `timed` steps are one window, timed with
-    CUDA events, with `window` entered for them.  Returns (ms/step over the
-    window, rays per step, the metric log, checkpoint written, PNG
-    written)."""
+def run_train(torch, iterations, startup, timed, window=None,
+              config="lego.json"):
+    """train_nerf.train on the recipe of configs/nerf/<config> (lego's by
+    default; the synthetic scene at 400x400) in a temporary directory; its
+    last `timed` steps are one window, timed with CUDA events, with `window`
+    entered for them.  Returns (ms/step over the window, rays per step, the
+    metric log, checkpoint written, PNG written)."""
     from msra_practice_project_tpu_torch.core.config import (
         CONFIG_ROOT, NERF_TRAIN_DEFAULTS, load_config, resolve)
     from msra_practice_project_tpu_torch.train import train_nerf
 
-    cfg = resolve(load_config(os.path.join(CONFIG_ROOT, "nerf", "lego.json")),
+    cfg = resolve(load_config(os.path.join(CONFIG_ROOT, "nerf", config)),
                   NERF_TRAIN_DEFAULTS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         cfg.update(output_path=out_dir, experiment_name="lego_smoke",
@@ -1687,6 +1716,344 @@ def pigan_rest(torch, FK, summary, kernels):
         "synthesis": syn["launches"]["film_mlp_fwd_f32"]}
 
 
+# Slice 12: the SIREN stack.  The JAX package runs every SIREN MLP as plain
+# XLA, so the port runs them as plain PyTorch in strict fp32 and no kernel
+# of the port may launch there.  Image fitting in the four kinds at the
+# configs' recipe (batch 65,536 = the 256x256 synthetic image, 3 x 256,
+# lr 1e-4), SDF fitting at siren_sdf_1.json's (65,536 on- + 65,536
+# off-surface points of the 100,000-point synthetic sphere) in two kinds,
+# the SIREN NeRF at lego_siren.json's (1024 rays x 64 + 128 samples), and
+# the image and SDF quality gates of the JAX package's tools.  The SIREN
+# NeRF gate (tools/torch_validate_nerf.py 5000 64 --siren, ~115 ms a step)
+# would take this run past 900 s; it runs by hand (PERF.md).
+SIREN_KINDS = ("siren", "tanh", "relu", "relu_pe")
+IMG_WARM, IMG_TIMED = 10, 100
+SDF_KINDS = ("siren", "relu_pe")
+SDF_WARM, SDF_TIMED = 5, 50
+# train_sdf's final mesh: n 512, the JAX default, for the siren kind.  The
+# relu_pe field after 55 steps still crosses zero in most voxels (its PE
+# reaches 2^9 rad per unit): tools/torch_sdf_mesh_sizes.py on an H100 host
+# gives 5.6M vertices at n 128 and 40.1M at n 256 (44-53 s of marching, 10
+# GiB of host memory), 7.2x per doubling, so ~290M at 512 would take the
+# host minutes and tens of GiB.  It meshes at mesh_n's 128.
+SDF_MESH_N = {"siren": 512, "relu_pe": 128}
+SIREN_WIDTH = 256
+IMG_POINTS = 256 * 256      # the synthetic image's pixels: one batch
+IMG_GATE_STEPS, SDF_GATE_STEPS = 1500, 4000
+
+
+def all_launches(K, FK):
+    """Every kernel counter of the port: K1-K6 and K2's chain, the split-K
+    pass, K8 (all, fp32) and K7."""
+    out = {k.__name__: k.launches for k in K.KERNELS}
+    out.update(nerf_mlp_deltas=K.nerf_mlp_deltas.launches,
+               dw_splitk=dw_launches(),
+               film_mlp_fwd=FK.film_mlp_fwd.launches,
+               film_mlp_fwd_f32=FK.film_mlp_fwd.launches_f32,
+               film_mlp_bwd=FK.film_mlp_bwd.launches)
+    return out
+
+
+def expect_no_launches(K, FK, what):
+    launches = all_launches(K, FK)
+    print(f"  kernel launches over {what}: {launches}", flush=True)
+    if any(launches.values()):
+        raise SystemExit(f"a kernel of the port launched on {what}: "
+                         f"{launches}")
+
+
+def is_gemm(name: str) -> bool:
+    """A cuBLAS/CUTLASS matrix-product kernel (or its split-K reduction)."""
+    n = name.lower()
+    return any(k in n for k in ("gemm", "gemv", "splitkreduce", "xmma"))
+
+
+def gemm_split(by_name, timed):
+    """(GEMM ms, the rest's ms) per step from a profile's {name: (ms, n)}:
+    sums of kernel times, so overlapping kernels count twice."""
+    gemm = sum(t for name, (t, _) in by_name.items() if is_gemm(name))
+    rest = sum(t for name, (t, _) in by_name.items() if not is_gemm(name))
+    return gemm / timed, rest / timed
+
+
+def siren_cfg(name, defaults, out_dir, **kw):
+    """configs/siren/<name> resolved, in `out_dir`, with `kw` replaced."""
+    from msra_practice_project_tpu_torch.core.config import (
+        CONFIG_ROOT, load_config, resolve)
+    cfg = resolve(load_config(os.path.join(CONFIG_ROOT, "siren", name)),
+                  defaults)
+    cfg.update(output_path=out_dir, **kw)
+    return cfg
+
+
+def run_siren(torch, trainer, cfg, timed, window=None):
+    """trainer.train(cfg) on the card with its last `timed` steps one
+    window; returns (its result, ms per step over the window, peak device
+    memory in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train(cfg, timed_steps=timed, window=window)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return res, res["window_ms"] / timed, peak
+
+
+def finite(values):
+    return len(values) > 0 and all(v == v and abs(v) != float("inf")
+                                   for v in values)
+
+
+def mlp_step_flops(n, in_dim, width=SIREN_WIDTH, hidden=3):
+    """The products of one forward + backward of the implicit MLP over n
+    points (2 FLOPs per MAC; the backward twice the forward, less the first
+    layer's input gradient)."""
+    macs = in_dim * width + hidden * width * width + width
+    return 2 * n * (3 * macs - in_dim * width)
+
+
+def sine_ms(torch, n, width=SIREN_WIDTH):
+    """trunk_sin(30 v) forward + backward on an [n, width] activation
+    alone: the unfused sine of one SIREN layer (median of 10, events)."""
+    from msra_practice_project_tpu_torch.core.nn import trunk_sin
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn((n, width), device="cuda", generator=gen)
+    v.requires_grad_()
+    g = torch.randn((n, width), device="cuda", generator=gen)
+
+    def fwd_bwd():
+        (dv,) = torch.autograd.grad(trunk_sin(30.0 * v), v, g)
+        return dv
+    return time_ms(torch, fwd_bwd, 10)
+
+
+def siren_img(torch, out_dir):
+    """Phase 21: train_img at each kind's config for IMG_WARM + IMG_TIMED
+    steps on the 256x256 synthetic image."""
+    from msra_practice_project_tpu_torch.core.config import SIREN_IMG_DEFAULTS
+    from msra_practice_project_tpu_torch.train import train_img
+    rows = {}
+    steps = IMG_WARM + IMG_TIMED
+    for kind in SIREN_KINDS:
+        cfg = siren_cfg(f"{kind}_img.json", SIREN_IMG_DEFAULTS, out_dir,
+                        experiment_name=f"img_{kind}", iterations=steps,
+                        i_print=steps, i_save=steps, i_image=steps)
+        res, ms, peak = run_siren(torch, train_img, cfg, IMG_TIMED)
+        loss, psnr = res["log"]["loss"], res["log"]["psnr"]
+        batch = min(cfg["batch_size"], res["width"] * res["height"])
+        log = os.path.join(out_dir, f"img_{kind}")
+        rows[kind] = r = {
+            "ms_per_step": ms, "pixels_per_s": batch / (ms / 1e3),
+            "batch": batch, "peak_gib": peak, "loss_first": loss[0],
+            "loss_last": loss[-1], "psnr_last": psnr[-1],
+            "gemm_flops_per_step": mlp_step_flops(batch, 2 if kind != "relu_pe"
+                                                  else 40)}
+        print(f"  {kind}: {ms:.3f} ms/step ({IMG_TIMED} steps, CUDA "
+              f"events), {r['pixels_per_s']:,.0f} pixels/s, peak "
+              f"{peak:.3f} GiB; loss {loss[0]:.5f} -> {loss[-1]:.5f}, PSNR "
+              f"{psnr[-1]:.2f} dB", flush=True)
+        if not (len(loss) == steps and finite(loss) and loss[-1] < loss[0]
+                and os.path.exists(os.path.join(log, f"{steps:06d}.png"))
+                and os.path.exists(os.path.join(log, f"{steps:06d}.ckpt"))):
+            raise SystemExit(f"SIREN image fit ({kind}) check failed")
+    return rows
+
+
+def siren_sdf(torch, out_dir):
+    """Phase 22: train_sdf at siren_sdf_1.json's recipe for SDF_WARM +
+    SDF_TIMED steps on the synthetic sphere, then its final mesh at
+    SDF_MESH_N; the SDF grid and the marching are timed apart.  The loss
+    must be finite and fall (mean of the last 5 below the first 5's)."""
+    from msra_practice_project_tpu_torch.core import mesh as mesh_lib
+    from msra_practice_project_tpu_torch.core.config import SIREN_SDF_DEFAULTS
+    from msra_practice_project_tpu_torch.train import train_sdf
+    rows = {}
+    steps = SDF_WARM + SDF_TIMED
+    for kind in SDF_KINDS:
+        cfg = siren_cfg(f"{kind}_sdf_1.json", SIREN_SDF_DEFAULTS, out_dir,
+                        experiment_name=f"sdf_{kind}", data_path="",
+                        iterations=steps, i_print=steps, i_save=steps,
+                        final_mesh_n=SDF_MESH_N[kind])
+        seconds = {}
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                seconds[key] = time.perf_counter() - t0
+                return out
+            return call
+        with replaced(train_sdf, "sdf_grid",
+                      timed("grid", train_sdf.sdf_grid)), \
+                replaced(mesh_lib, "extract_mesh_from_grid",
+                         timed("marching", mesh_lib.extract_mesh_from_grid)):
+            res, ms, peak = run_siren(torch, train_sdf, cfg, SDF_TIMED)
+        loss = res["log"]["loss"]
+        first, last = sum(loss[:5]) / 5, sum(loss[-5:]) / 5
+        verts, faces = mesh_lib.read_ply(
+            os.path.join(out_dir, f"sdf_{kind}", "test.ply"))
+        rows[kind] = r = {
+            "ms_per_step": ms, "points_per_step": 2 * cfg["batch_size"],
+            "peak_gib": peak, "loss_first": loss[0], "loss_last": loss[-1],
+            "loss_first5": first, "loss_last5": last,
+            "mesh_n": SDF_MESH_N[kind], "grid_seconds": seconds["grid"],
+            "marching_seconds": seconds["marching"],
+            "verts": int(verts.shape[0]), "faces": int(faces.shape[0])}
+        print(f"  {kind}: {ms:.3f} ms/step ({SDF_TIMED} steps, CUDA "
+              f"events), peak {peak:.3f} GiB; loss (mean of 5) {first:.3f} "
+              f"-> {last:.3f}; final mesh n={SDF_MESH_N[kind]}: grid "
+              f"{r['grid_seconds']:.3f} s, marching "
+              f"{r['marching_seconds']:.3f} s, {r['verts']} verts, "
+              f"{r['faces']} faces", flush=True)
+        if not (len(loss) == steps and finite(loss) and last < first):
+            raise SystemExit(f"SIREN SDF fit ({kind}) check failed")
+    return rows
+
+
+def siren_nerf(torch):
+    """Phase 23: train_nerf.train at lego_siren.json's recipe, 30 steps
+    with the last 20 timed, then again with torch.profiler on for them.
+    The loss must be finite and fall (mean of the last 5 below the first
+    5's)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
+    ms, batch, log, ckpt, png = run_train(torch, 30, 0, 20,
+                                          config="lego_siren.json")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = log["loss"]
+    first, last = sum(loss[:5]) / 5, sum(loss[-5:]) / 5
+    print(f"  {ms:.3f} ms/step (20 steps, CUDA events), "
+          f"{batch / (ms / 1e3):,.0f} rays/s, peak {peak:.3f} GiB; loss "
+          f"(mean of 5) {first:.5f} -> {last:.5f}; ckpt {ckpt}, png {png}",
+          flush=True)
+    if not (len(loss) == 30 and finite(loss) and last < first and ckpt
+            and png):
+        raise SystemExit("SIREN NeRF check failed")
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof_ms = run_train(torch, 30, 0, 20, window=prof,
+                        config="lego_siren.json")[0]
+    busy, idle, by_name = profile_report(prof, 20, prof_ms, "step")
+    gemm, rest = gemm_split(by_name, 20)
+    print(f"  device time by kind: GEMM {gemm:.3f} ms/step, the rest "
+          f"{rest:.3f}", flush=True)
+    return {"ms_per_step": ms, "rays_per_s": batch / (ms / 1e3),
+            "peak_gib": peak, "loss_first5": first, "loss_last5": last,
+            "profiled_ms_per_step": prof_ms, "busy_ms": busy,
+            "idle_share": idle, "gemm_ms": gemm, "rest_ms": rest}
+
+
+def siren_profiles(torch, out_dir):
+    """One profiled window each of the image (siren kind, 10 + 20 steps)
+    and the SDF step (siren kind, 5 + 5 steps, a small final mesh), and
+    the sine alone at the image step's activation shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msra_practice_project_tpu_torch.core.config import (
+        SIREN_IMG_DEFAULTS, SIREN_SDF_DEFAULTS)
+    from msra_practice_project_tpu_torch.train import train_img, train_sdf
+    out = {}
+    for label, trainer, cfg, timed in (
+            ("img", train_img, siren_cfg(
+                "siren_img.json", SIREN_IMG_DEFAULTS, out_dir,
+                experiment_name="img_prof", iterations=30, i_print=30,
+                i_save=1000, i_image=1000), 20),
+            ("sdf", train_sdf, siren_cfg(
+                "siren_sdf_1.json", SIREN_SDF_DEFAULTS, out_dir,
+                experiment_name="sdf_prof", data_path="", iterations=10,
+                i_print=10, i_save=1000, final_mesh_n=32), 5)):
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        _, ms, _ = run_siren(torch, trainer, cfg, timed, window=prof)
+        busy, idle, by_name = profile_report(prof, timed, ms, "step")
+        gemm, rest = gemm_split(by_name, timed)
+        print(f"  {label} (siren): device time by kind: GEMM {gemm:.3f} "
+              f"ms/step, the rest {rest:.3f}", flush=True)
+        out[label] = {"profiled_ms_per_step": ms, "busy_ms": busy,
+                      "idle_share": idle, "gemm_ms": gemm, "rest_ms": rest}
+    n = IMG_POINTS
+    out["sine_fwd_bwd_ms"] = t = sine_ms(torch, n)
+    print(f"  trunk_sin(30 v) forward + backward alone at [{n}, "
+          f"{SIREN_WIDTH}]: {t:.4f} ms (4 per image step)", flush=True)
+    return out
+
+
+def siren_gates(torch, K, FK):
+    """Phase 24: the JAX package's SIREN image and SDF quality gates
+    through the port's tools, in this process, then eval.test_img and
+    eval.test_sdf on their runs.  Fails unless each gate passes."""
+    from msra_practice_project_tpu_torch.eval import test_img, test_sdf
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_siren_") as tmp:
+        t0 = time.perf_counter()
+        img = load_tool("torch_validate_img").main(
+            IMG_GATE_STEPS, 64, out_dir=os.path.join(tmp, "img"))
+        out["img"] = {"psnr": img["psnr"], "ms_per_step": img["ms_per_step"],
+                      "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        sdf = load_tool("torch_validate_sdf").main(
+            SDF_GATE_STEPS, out_dir=os.path.join(tmp, "sdf"))
+        out["sdf"] = {k: sdf[k] for k in (
+            "mean_err", "p95_err", "voxel", "radius", "verts", "faces",
+            "loss_first", "loss_last50", "ms_per_step")}
+        out["sdf"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        expect_no_launches(K, FK, "the SIREN gates")
+        strip = test_img.run(os.path.join(tmp, "cmp"),
+                             list(img["log_paths"].values()))
+        table = test_sdf.run(os.path.join(tmp, "cmp"), [sdf["log_path"]])
+        out["eval"] = {"test_img": sorted(strip),
+                       "test_sdf_meshes": list(table["meshes"].values())}
+    print(f"  gates: {json.dumps(out)}", flush=True)
+    if not img["ok"]:
+        raise SystemExit(f"SIREN image gate failed: {img['psnr']}")
+    if not sdf["ok"]:
+        raise SystemExit(f"SIREN SDF gate failed: mean {sdf['mean_err']}, "
+                         f"p95 {sdf['p95_err']} (voxel {sdf['voxel']})")
+    if "renders" not in strip or len(table["meshes"]) != 1:
+        raise SystemExit("SIREN eval check failed")
+    return out
+
+
+def siren_stack(torch, K, FK):
+    """Phases 21-24, every kernel counter set to 0 before them: no kernel
+    of the port may launch on a SIREN path."""
+    reset_counts()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_siren_") as tmp:
+        phase(f"SIREN image fit: train_img, the four kinds at siren_img."
+              f"json's recipe (batch 65,536 = 256x256, 3 x 256), "
+              f"{IMG_WARM} + {IMG_TIMED} steps")
+        out["img"] = siren_img(torch, tmp)
+        phase(f"SIREN SDF fit: train_sdf, {', '.join(SDF_KINDS)} at "
+              f"siren_sdf_1.json's recipe (65,536 + 65,536 points), "
+              f"{SDF_WARM} + {SDF_TIMED} steps, final mesh n="
+              f"{SDF_MESH_N}")
+        out["sdf"] = siren_sdf(torch, tmp)
+        phase("SIREN NeRF: train_nerf.train, lego_siren.json's recipe, 30 "
+              "steps (the last 20 timed, then profiled)")
+        out["nerf"] = siren_nerf(torch)
+        phase("profile: SIREN image and SDF steps (siren kind), "
+              "torch.profiler on")
+        out["profiles"] = siren_profiles(torch, tmp)
+    # The unfused sine's share of the device's busy time: the sine alone
+    # (forward + backward) scaled by the elements each step passes through
+    # it: 4 layers of the image MLP; the SIREN NeRF's 8 trunk layers and
+    # its 128-wide direction layer over both passes' points.
+    t, prof = out["profiles"]["sine_fwd_bwd_ms"], out["profiles"]
+    nerf_elems = (COARSE_N + FINE_N) * (8 * SIREN_WIDTH + SIREN_WIDTH // 2)
+    out["sine_share"] = {
+        "img": 4 * t / prof["img"]["busy_ms"],
+        "nerf": nerf_elems / (IMG_POINTS * SIREN_WIDTH) * t
+        / out["nerf"]["busy_ms"]}
+    print(f"  the unfused sine's share of device time: {out['sine_share']}",
+          flush=True)
+    torch.cuda.synchronize()
+    expect_no_launches(K, FK, "phases 21-23")
+    phase(f"SIREN quality: torch_validate_img {IMG_GATE_STEPS}, "
+          f"torch_validate_sdf {SDF_GATE_STEPS}; then eval.test_img and "
+          "eval.test_sdf on them")
+    out["gates"] = siren_gates(torch, K, FK)
+    return out
+
+
 def cuda_tool(name):
     """The CUDA toolkit's `name` (cuobjdump, nvdisasm), or None."""
     import shutil
@@ -2069,6 +2436,7 @@ def main() -> int:
     kernels.append(entry)
 
     pigan_rest(torch, FK, summary, kernels)
+    summary["siren"] = siren_stack(torch, K, FK)
 
     print(json.dumps(summary))
     print(smi)

@@ -83,6 +83,29 @@ NERF_TRAIN_DEFAULTS = {
 }
 
 
+SIREN_IMG_DEFAULTS = {
+    # siren/train_img.py:22-29
+    "iterations": 10000,
+    "batch_size": 65536,
+    "learning_rate": 1e-4,
+    "model_type": "siren",
+    "i_print": 100,
+    "i_save": 10000,
+    "i_image": 1000,
+}
+
+SIREN_SDF_DEFAULTS = {
+    # siren/train_sdf.py:22-29
+    "iterations": 10000,
+    "batch_size": 65536,
+    "learning_rate": 1e-4,
+    "model_type": "siren",
+    "i_print": 100,
+    "i_save": 10000,
+    "i_mesh": 1000,
+}
+
+
 PIGAN_TRAIN_DEFAULTS = {
     # pi_GAN/train.py:23-42
     "render_near": 0.5,

@@ -1,8 +1,8 @@
 """Neural-net primitives (port of ``msra_practice_project_tpu/core/nn.py``):
 Xavier-uniform dense init with the reference's activation gains, the
-torch-default and FiLM-SIREN inits, the polynomial trunk sine with its
-derivative, the FiLM-SIREN layer, and the positional encoding with its
-interleaved ``[sin_i(3), cos_i(3)]`` layout.
+torch-default, SIREN and FiLM-SIREN inits, the polynomial trunk sine with its
+derivative, the SIREN and FiLM-SIREN layers, and the positional encoding with
+its interleaved ``[sin_i(3), cos_i(3)]`` layout.
 
 Weights follow ``torch.nn.Linear``: ``[out, in]``.  Every init draws from an
 explicit ``torch.Generator`` (weight first, then bias).
@@ -57,6 +57,44 @@ def torch_linear_default(in_dim: int, out_dim: int,
     bias U(+-1/sqrt(in))."""
     bound = 1.0 / math.sqrt(in_dim)
     return _uniform_linear(in_dim, out_dim, bound, bound, generator, device)
+
+
+def siren_init(in_dim: int, out_dim: int, scheme: str = "nerf",
+               generator: torch.Generator | None = None,
+               device=None) -> nn.Linear:
+    """Init of a sine layer (JAX ``core/nn.py::siren_init``).
+
+    scheme:
+      'torch_default' -- weight and bias U(+-1/sqrt(in)), torch's Linear.
+      'first'         -- weight U(+-1/in), torch-default bias
+                         (siren/modules.py:79).
+      'hidden'        -- weight U(+-sqrt(6/in)/30), torch-default bias
+                         (siren/modules.py:83).
+      'nerf'          -- weight U(+-sqrt(6/in)/30), zero bias
+                         (nerf/nerf.py:114-117).
+      'nerf_first'    -- weight U(+-1/30), zero bias (nerf/nerf.py:134).
+    A zero bias draws nothing from ``generator``."""
+    b_bound = 1.0 / math.sqrt(in_dim)
+    if scheme == "torch_default":
+        w_bound = 1.0 / math.sqrt(in_dim)
+    elif scheme == "first":
+        w_bound = 1.0 / in_dim
+    elif scheme == "hidden":
+        w_bound = math.sqrt(6.0 / in_dim) / 30.0
+    elif scheme == "nerf":
+        w_bound, b_bound = math.sqrt(6.0 / in_dim) / 30.0, 0.0
+    elif scheme == "nerf_first":
+        w_bound, b_bound = 1.0 / 30.0, 0.0
+    else:
+        raise ValueError(f"unknown siren init scheme '{scheme}'")
+    if b_bound > 0:
+        return _uniform_linear(in_dim, out_dim, w_bound, b_bound, generator,
+                               device)
+    layer = nn.Linear(in_dim, out_dim, device=device)
+    with torch.no_grad():
+        layer.weight.uniform_(-w_bound, w_bound, generator=generator)
+        layer.bias.zero_()
+    return layer
 
 
 def film_siren_init(in_dim: int, out_dim: int, c: float = 6.0,
@@ -122,6 +160,12 @@ def trunk_sin_vjp(v: torch.Tensor) -> torch.Tensor:
     c1, c3, c5, c7 = _SIN_POLY
     dp = c1 + r2 * (3 * c3 + r2 * (5 * c5 + r2 * (7 * c7)))
     return torch.where(flip, -dp, dp)
+
+
+def siren_apply(layer: nn.Linear, x: torch.Tensor,
+                w0: float = 30.0) -> torch.Tensor:
+    """sin(w0 * (x W^T + b)) through the trunk sine."""
+    return trunk_sin(w0 * layer(x))
 
 
 def film_siren_apply(layer: nn.Linear, x: torch.Tensor, gamma: torch.Tensor,

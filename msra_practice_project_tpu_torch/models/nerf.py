@@ -1,14 +1,17 @@
-"""NeRF radiance-field MLP, PE variant (port of
+"""NeRF and SirenNeRF radiance-field MLPs (port of
 ``msra_practice_project_tpu/models/nerf.py``).
 
 ``forward(x[..., 6]) -> [..., 4]``: the input packs (position, view
 direction), the output (rgb in [0,1], sigma >= 0).  8x256 trunk with the
 embedded position skip-concatenated at layer 5 in the order ``[e_pos, h]``,
 a ReLU sigma head, and a view-dir branch in the order ``[h, e_dir]``
-256 -> 128 -> rgb sigmoid (ref: nerf/nerf.py:58-94).  Parameter names follow
-the JAX param tree (``layers_pos``, ``layers_dir``, ``sigma``, ``rgb``).
-
-SirenNeRF (``use_siren=True``) is not ported yet.
+256 -> 128 -> rgb sigmoid (ref: nerf/nerf.py:58-94).  SirenNeRF
+(``use_siren=True``, ref: nerf/nerf.py:120-170) swaps sine layers in, drops
+the PEs and skips the raw position: ``[pos, h]`` into layer 5 and
+``[h, direction]`` into the direction branch's sine layer.  Parameter names
+follow the JAX param tree (``layers_pos``, ``layers_dir``, ``sigma``,
+``rgb``).  The SirenNeRF runs as plain PyTorch on either device: the fused
+kernels serve the PE model only, as the JAX package's Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..core.nn import dense_init, positional_encoding, positional_encoding_dim
+from ..core.nn import (dense_init, positional_encoding,
+                       positional_encoding_dim, siren_apply, siren_init)
 
 
 @dataclass(frozen=True)
@@ -33,29 +37,37 @@ class NeRFModel(nn.Module):
     def __init__(self, cfg: NeRFConfig = NeRFConfig(), *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if cfg.use_siren:
-            raise NotImplementedError(
-                "SirenNeRF is not ported yet; use the PE NeRF")
         self.cfg = cfg
         h = cfg.hidden_dim
-        pos_in = positional_encoding_dim(3, cfg.pe_pos_length)  # 60
-        dir_pe = positional_encoding_dim(3, cfg.pe_dir_length)  # 24
 
         def dense(i, o, act):
             return dense_init(i, o, act, generator, device)
 
-        self.layers_pos = nn.ModuleList(
-            [dense(pos_in, h, "relu")]
-            + [dense(h, h, "relu") for _ in range(4)]
-            + [dense(h + pos_in, h, "relu")]
-            + [dense(h, h, "relu") for _ in range(2)])
-        self.layers_dir = nn.ModuleList(
-            [dense(h, h, "linear"), dense(h + dir_pe, h // 2, "relu")])
+        if cfg.use_siren:
+            def sine(i, o, scheme="nerf"):
+                return siren_init(i, o, scheme, generator, device)
+            self.layers_pos = nn.ModuleList(
+                [sine(3, h, "nerf_first")] + [sine(h, h) for _ in range(4)]
+                + [sine(h + 3, h)] + [sine(h, h) for _ in range(2)])
+            self.layers_dir = nn.ModuleList(
+                [dense(h, h, "linear"), sine(h + 3, h // 2)])
+        else:
+            pos_in = positional_encoding_dim(3, cfg.pe_pos_length)  # 60
+            dir_pe = positional_encoding_dim(3, cfg.pe_dir_length)  # 24
+            self.layers_pos = nn.ModuleList(
+                [dense(pos_in, h, "relu")]
+                + [dense(h, h, "relu") for _ in range(4)]
+                + [dense(h + pos_in, h, "relu")]
+                + [dense(h, h, "relu") for _ in range(2)])
+            self.layers_dir = nn.ModuleList(
+                [dense(h, h, "linear"), dense(h + dir_pe, h // 2, "relu")])
         self.sigma = dense(h, 1, "relu")
         self.rgb = dense(h // 2, 3, "sigmoid")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.use_siren:
+            return self._siren_forward(x)
         pos, direction = x[..., :3], x[..., 3:6]
         e_pos = positional_encoding(pos, cfg.pe_pos_length)
         e_dir = positional_encoding(direction, cfg.pe_dir_length)
@@ -70,6 +82,22 @@ class NeRFModel(nn.Module):
         h = self.layers_dir[0](h)
         h = torch.cat([h, e_dir], dim=-1)
         h = torch.relu(self.layers_dir[1](h))
+        rgb = torch.sigmoid(self.rgb(h))
+        return torch.cat([rgb, sigma], dim=-1)
+
+    def _siren_forward(self, x: torch.Tensor) -> torch.Tensor:
+        pos, direction = x[..., :3], x[..., 3:6]
+        lp = self.layers_pos
+        h = siren_apply(lp[0], pos)
+        for layer in lp[1:5]:
+            h = siren_apply(layer, h)
+        h = torch.cat([pos, h], dim=-1)
+        for layer in lp[5:8]:
+            h = siren_apply(layer, h)
+        sigma = torch.relu(self.sigma(h))
+        h = self.layers_dir[0](h)
+        h = torch.cat([h, direction], dim=-1)
+        h = siren_apply(self.layers_dir[1], h)
         rgb = torch.sigmoid(self.rgb(h))
         return torch.cat([rgb, sigma], dim=-1)
 

@@ -8,6 +8,7 @@ Every driver is ``python -m msra_practice_project_tpu_torch.train.<name>
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -118,6 +119,54 @@ def clock(device: torch.device):
         ev.record()
         return ev
     return time.perf_counter()
+
+
+class TimedWindow:
+    """The steps ``end - timed_steps + 1 .. end`` as one timed window.
+
+    ``before_step(done)`` is called at the top of each step with the number
+    of steps done so far, and opens the window, on an idle device, before
+    the first of them; ``after_step(done)`` closes it right after the last
+    one.  ``context``, a context manager such as a ``torch.profiler``
+    profile, is entered for the same steps; leaving the ``with`` block
+    closes it if a step raised.  ``ms()`` is the window's time, or None when
+    it did not run (CUDA events on the card, the host clock on the CPU)."""
+
+    def __init__(self, device: torch.device, end: int, timed_steps: int,
+                 context=None):
+        self.device, self.end, self.context = device, end, context
+        self.start = end - timed_steps if timed_steps > 0 else None
+        self._stack = contextlib.ExitStack()
+        self._opened = self._closed = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+        return False
+
+    def before_step(self, done: int):
+        if done == self.start and self._opened is None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self.context is not None:
+                self._stack.enter_context(self.context)
+            self._opened = clock(self.device)
+
+    def after_step(self, done: int):
+        if (self._opened is not None and self._closed is None
+                and done == self.end):
+            self._closed = clock(self.device)
+            self._stack.close()
+
+    def ms(self) -> float | None:
+        if self._closed is None:
+            return None
+        if self.device.type == "cuda":
+            self._closed.synchronize()
+            return self._opened.elapsed_time(self._closed)
+        return 1e3 * (self._closed - self._opened)
 
 
 def parse_cli(argv, defaults: dict) -> Config:

@@ -7,10 +7,11 @@
   * Coarse+fine MSE (+0.1 * alpha loss with ``use_alpha``), one Adam over
     both models with lr * 0.1^(step / (decay * 1000)).
   * Epoch reshuffle really reshuffles (the reference's is a no-op bug).
-  * On CUDA both MLP calls of the step go through the fused kernels
-    (``ops/kernels/nerf_mlp.py``: K1 forward with saved activations, K2
-    backward, bf16 tensor-core matmuls), as ``use_fused_mlp`` does on the TPU;
-    on the CPU they use the plain model.
+  * On CUDA both MLP calls of the PE NeRF's step go through the fused
+    kernels (``ops/kernels/nerf_mlp.py``: K1 forward with saved activations,
+    K2 backward, bf16 tensor-core matmuls), as ``use_fused_mlp`` does on the
+    TPU, and ``use_fused_mlp=False`` raises there; the SIREN NeRF and the
+    CPU use the plain models (``uses_fused_mlp``).
   * ``steps_per_call`` is read but the loop runs one step per iteration: the
     JAX trainer scans that many steps per dispatch, which is the same math.
 
@@ -22,7 +23,6 @@ Run: python -m msra_practice_project_tpu_torch.train.train_nerf <config.json>
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 
@@ -96,21 +96,32 @@ def sample_startup_batch(startup_buf, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def uses_fused_mlp(cfg, device) -> bool:
+    """Whether the step's MLP calls go through the fused kernels: the PE
+    NeRF on CUDA, as the JAX trainer sends it to its Pallas kernel on the
+    TPU.  The SIREN NeRF (no kernel in either package) runs the plain
+    models, and so does the CPU.  On CUDA the PE NeRF has no plain route,
+    so ``use_fused_mlp=False`` raises there."""
+    if torch.device(device).type != "cuda" or cfg.get("use_siren", False):
+        return False
+    if not cfg.get("use_fused_mlp", True):
+        raise NotImplementedError(
+            "on CUDA the PE NeRF's MLP runs only through the fused kernels: "
+            "use_fused_mlp=False is not supported")
+    return True
+
+
 def make_train_step(coarse_model, fine_model, opt, cfg, device):
     """Returns step(batch [B,10], *, generator=None, jitter=None) -> metrics,
     which updates the models in place.  ``jitter`` ([B, n_coarse]) replaces
-    the stratified draws from ``generator``.  On CUDA the MLP runs only
-    through the fused kernels, so a config that turns them off (or asks for
-    the SIREN NeRF, which has none yet) raises there."""
+    the stratified draws from ``generator``.  The MLP runs through the fused
+    kernels where ``uses_fused_mlp`` says so, else through the plain
+    models."""
     use_fine = cfg["use_fine_model"]
     use_alpha = cfg["use_alpha"]
     near, far = cfg["render_near"], cfg["render_far"]
     nc, nf = cfg["render_coarse_sample_num"], cfg["render_fine_sample_num"]
-    if torch.device(device).type == "cuda":
-        if not cfg.get("use_fused_mlp", True) or cfg.get("use_siren", False):
-            raise NotImplementedError(
-                "on CUDA the NeRF MLP runs only through the fused kernels: "
-                "use_fused_mlp=False and use_siren=True are not supported")
+    if uses_fused_mlp(cfg, device):
         # need_dx=False: the points come from ray data and detached depths;
         # save_acts=True: K1 spills the activations so K2 skips the
         # recompute, as the JAX trainer passes them.
@@ -178,11 +189,12 @@ def load_dataset(config):
 def train(config, device=None, timed_steps=0, window=None) -> dict:
     """Train from a resolved config; runs on CUDA unless ``device='cpu'``.
 
-    With ``timed_steps`` > 0 the last that many steps are one timed window:
-    it opens at the top of the first of them, on an idle device, and closes
-    right after the last one (before that iteration's print, checkpoint and
-    image), and everything in between counts.  ``window``, a context manager
-    such as a ``torch.profiler.profile``, is entered for the same steps.
+    With ``timed_steps`` > 0 the last that many steps are one timed window
+    (``common.TimedWindow``): it opens at the top of the first of them, on
+    an idle device, and closes right after the last one (before that
+    iteration's print, checkpoint and image), and everything in between
+    counts.  ``window``, a context manager such as a
+    ``torch.profiler.profile``, is entered for the same steps.
 
     Returns the state, the metric log, the models, the image geometry and
     ``window_ms``, the window's time (None when it did not run)."""
@@ -238,17 +250,10 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
 
     batch_idx = 0
     iterations = config["iterations"]
-    window_start = iterations - timed_steps if timed_steps > 0 else None
-    opened = closed = None
-    # the window's context is closed with it, or here if a step raises
-    with contextlib.ExitStack() as stack:
+    with common.TimedWindow(device, iterations, timed_steps,
+                            window) as timer:
         while global_step < iterations:
-            if global_step == window_start:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                if window is not None:
-                    stack.enter_context(window)
-                opened = common.clock(device)
+            timer.before_step(global_step)
             # Epoch boundary: a real reshuffle.
             if (global_step >= config["start_up_itrs"]
                     and (batch_idx + 1) * batch_size > n_rays):
@@ -267,9 +272,7 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
             state["step"] = global_step
             m = step_fn(batch, generator=dev_gen)
             logger.append(loss=m["loss"], psnr=m["psnr"])
-            if opened is not None and global_step == iterations:
-                closed = common.clock(device)
-                stack.close()
+            timer.after_step(global_step)
 
             if global_step % config["i_print"] == 0:
                 rate = config["i_print"] / max(logger.step_time(), 1e-9)
@@ -290,16 +293,9 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
                     os.path.join(log_path, f"{global_step:06d}.png"), frame)
 
     logger.save(log_path)
-    window_ms = None
-    if closed is not None:
-        if device.type == "cuda":
-            closed.synchronize()
-            window_ms = opened.elapsed_time(closed)
-        else:
-            window_ms = 1e3 * (closed - opened)
     return {"state": state, "log": logger.data,
             "models": (coarse_model, fine_model),
-            "geometry": (width, height, focal), "window_ms": window_ms}
+            "geometry": (width, height, focal), "window_ms": timer.ms()}
 
 
 def render_eval_image(config, coarse_model, fine_model, width, height, focal,

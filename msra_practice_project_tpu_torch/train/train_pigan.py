@@ -29,7 +29,6 @@ Run: python -m msra_practice_project_tpu_torch.train.train_pigan <config.json>
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 
@@ -283,18 +282,11 @@ def train(config, device=None, timed_steps=0, window=None,
     step_gen = torch.Generator(device=device)
     last = iterations[-1]
     window_end = last if window_end is None else window_end
-    window_start = window_end - timed_steps if timed_steps > 0 else None
-    opened = closed = None
     m_d = {}
-    # the window's context is closed with it, or here if a step raises
-    with contextlib.ExitStack() as stack:
+    with common.TimedWindow(device, window_end, timed_steps,
+                            window) as timer:
         for global_step in range(global_step + 1, last + 1):
-            if global_step - 1 == window_start:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                if window is not None:
-                    stack.enter_context(window)
-                opened = common.clock(device)
+            timer.before_step(global_step - 1)
             epoch_idx, batch_idx, real = dataset.get()
             real = real.permute(0, 3, 1, 2).contiguous()   # NHWC -> NCHW
 
@@ -316,10 +308,7 @@ def train(config, device=None, timed_steps=0, window=None,
             m_g = g_step(z, fade_alpha, noise_std, generator=step_gen)
             loss_log["d_loss"].append(m_d["d_loss"])
             loss_log["g_loss"].append(m_g["g_loss"])
-            if opened is not None and closed is None \
-                    and global_step == window_end:
-                closed = common.clock(device)
-                stack.close()
+            timer.after_step(global_step)
 
             # stage switch (ref: pi_GAN/train.py:149-156)
             if (stage + 1 < len(iterations)
@@ -362,16 +351,9 @@ def train(config, device=None, timed_steps=0, window=None,
     dataset.close()
     _flush(loss_log)
     np.save(os.path.join(log_path, "loss_log.npy"), loss_log)
-    window_ms = None
-    if closed is not None:
-        if device.type == "cuda":
-            closed.synchronize()
-            window_ms = opened.elapsed_time(closed)
-        else:
-            window_ms = 1e3 * (closed - opened)
     return {"generator": generator, "discriminator": discriminator,
             "g_opt": g_opt, "d_opt": d_opt, "loss_log": loss_log,
-            "window_ms": window_ms}
+            "window_ms": timer.ms()}
 
 
 def main(argv=None):

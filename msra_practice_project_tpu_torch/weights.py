@@ -3,9 +3,10 @@
 
 A JAX tree is nested dicts/tuples of arrays whose layers are ``{"w", "b"}``
 dicts; the port's module names join the same keys and tuple indices with
-dots, ``w`` becoming ``weight`` and ``b`` ``bias`` (the NeRF's
-``layers_pos.3.weight``, pi-GAN's ``mapping.heads.8.bias``,
-``trunk.hidden.0.weight``, ``blocks.2.conv1.weight``).  Linear weights are
+dots, ``w`` becoming ``weight`` and ``b`` ``bias`` (the NeRF's and the
+SirenNeRF's ``layers_pos.3.weight``, pi-GAN's ``mapping.heads.8.bias``,
+``trunk.hidden.0.weight``, ``blocks.2.conv1.weight``, the implicit MLP's
+``input.weight``, ``hidden.2.bias`` and ``output.weight``).  Linear weights are
 ``[in, out]`` in JAX and ``[out, in]`` in ``nn.Linear``, so they are
 transposed; convolution weights are OIHW in both and are not.
 """

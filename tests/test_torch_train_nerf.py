@@ -208,14 +208,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert port.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("override", [dict(use_fused_mlp=False),
-                                      dict(use_siren=True)])
+@pytest.mark.parametrize("override", [dict(use_fused_mlp=False)])
 def test_cuda_step_has_no_plain_route(override):
-    """On CUDA the MLP runs through the fused kernels or the step raises;
-    the plain model is the CPU's route only."""
+    """On CUDA the PE NeRF's MLP runs through the fused kernels or the step
+    raises; the plain model is the CPU's route only."""
+    assert train_nerf.uses_fused_mlp(NERF_TRAIN_DEFAULTS, "cuda")
+    assert not train_nerf.uses_fused_mlp(NERF_TRAIN_DEFAULTS, "cpu")
     m = nerf_model()
     opt = common.adam(list(m.parameters()), common.exponential_lr(5e-4, 500))
     cfg = dict(NERF_TRAIN_DEFAULTS, **override)
     with pytest.raises(NotImplementedError, match="fused kernels"):
         train_nerf.make_train_step(m, m, opt, cfg, "cuda")
     assert callable(train_nerf.make_train_step(m, m, opt, cfg, "cpu"))
+
+
+def test_cuda_siren_step_takes_plain_models():
+    """The SIREN NeRF has no kernel in either package: on CUDA its step
+    runs the plain models, as the JAX trainer runs it as plain XLA on the
+    TPU.  The CUDA step built for it calls them, so it runs here on CPU
+    tensors."""
+    cfg = dict(NERF_TRAIN_DEFAULTS, render_coarse_sample_num=4,
+               render_fine_sample_num=4, use_siren=True)
+    assert not train_nerf.uses_fused_mlp(cfg, "cuda")
+    assert not train_nerf.uses_fused_mlp(cfg, torch.device("cpu"))
+    m = nerf_model(use_siren=True)
+    opt = common.adam(list(m.parameters()), common.exponential_lr(5e-4, 500))
+    step = train_nerf.make_train_step(m, m, opt, cfg, "cuda")
+    batch = torch.from_numpy(_batch(np.random.default_rng(1), 8))
+    out = step(batch, generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(float(out["loss"]))

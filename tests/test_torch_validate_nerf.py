@@ -133,21 +133,25 @@ def test_cli_options():
                                                          None)
     with pytest.raises(SystemExit):
         V.parse_args(["--scene=lego"])
-    with pytest.raises(NotImplementedError, match="SIREN"):
-        V.main(1, 8, device="cpu", use_siren=True)
+    assert V.parse_args(["--siren"]).siren is True
+    assert V.SIREN_OVERRIDES == {"use_siren": True, "learning_rate": 1e-4,
+                                 "start_up_itrs": 0, "use_alpha": True}
 
 
 def test_tool_imports_neither_jax_nor_matplotlib():
-    """The quality-gate tools (NeRF and pi-GAN), chip_smoke.py and every
-    module of the port (the eval scripts included) load no JAX, no module of the JAX package and no
-    matplotlib: the card's machine has neither."""
+    """The quality-gate tools (NeRF, pi-GAN, SIREN image and SDF), the
+    SDF mesh-size tool, chip_smoke.py and every module of the port (the eval scripts included)
+    load no JAX, no module of the JAX package and no matplotlib: the card's
+    machine has neither."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
 import msra_practice_project_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke  # noqa: F401
-for tool in ("torch_validate_nerf", "torch_validate_pigan"):
+for tool in ("torch_validate_nerf", "torch_validate_pigan",
+             "torch_validate_img", "torch_validate_sdf",
+             "torch_sdf_mesh_sizes"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules

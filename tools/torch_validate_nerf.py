@@ -7,16 +7,17 @@ multi-view dataset from an ANALYTIC density field (three coloured soft
 spheres; ``--scene=hard``: a view-dependent, high-frequency shell around an
 occluded core) with the port's own renderer, writes it in Blender format,
 trains a NeRF on it through ``train_nerf.train`` (on CUDA: K1 and K2, the
-fused bf16 kernels), and scores train views and held-out test views
-(PSNR/SSIM) with the plain models.  The gate: test PSNR > 28 dB (exit code
-1 otherwise).
+fused bf16 kernels; ``--siren``: the SIREN NeRF, plain fp32, with the
+lego_siren ablation's lr 1e-4, no start-up crop and alpha supervision), and
+scores train views and held-out test views (PSNR/SSIM) with the plain
+models.  The gate: test PSNR > 28 dB (exit code 1 otherwise).
 
 The GT's stratified jitter comes from torch generators seeded per view, so
 the images are the port's own, not bit-equal to the JAX tool's; the poses
 are the same draws.
 
 Run: python3 tools/torch_validate_nerf.py [iterations] [resolution]
-         [--scene=easy|hard] [--device cpu] [--out DIR]
+         [--scene=easy|hard] [--siren] [--device cpu] [--out DIR]
 """
 
 from __future__ import annotations
@@ -112,6 +113,8 @@ def analytic_field(x):
 
 
 SCENES = {"easy": analytic_field, "hard": analytic_field_hard}
+SIREN_OVERRIDES = {"use_siren": True, "learning_rate": 1e-4,
+                   "start_up_itrs": 0, "use_alpha": True}
 _SPLIT_ID = {"train": 0, "val": 1, "test": 2}
 
 
@@ -169,10 +172,6 @@ def main(iterations=3000, size=64, scene="easy", device=None, out_dir=None,
     (psnr, ssim), "test": (psnr, ssim), "log_path", "steps", "ms_per_step",
     "psnr_curve"}; ms_per_step is the train steps' own window (CUDA events
     on the card, the host clock on the CPU)."""
-    if use_siren:
-        raise NotImplementedError(
-            "--siren needs the SIREN NeRF, which the port does not have yet "
-            "(ROADMAP.md section 1, item 3)")
     device = resolve_device(device)
     base = out_dir or os.path.join(tempfile.gettempdir(),
                                    "nerf_validate_torch")
@@ -184,13 +183,16 @@ def main(iterations=3000, size=64, scene="easy", device=None, out_dir=None,
               flush=True)
         make_dataset(data_dir, size, scene=scene, device=device)
 
-    exp = f"exp_{scene}"
+    exp = f"exp_{scene}" + ("_siren" if use_siren else "")
     cfg = resolve({
         "output_path": base, "experiment_name": exp,
         "data_path": data_dir, "data_resize": 1.0, "data_skip": 1,
         "iterations": iterations, "batch_size": 1024, "start_up_itrs": 200,
         "i_print": max(iterations // 10, 1), "i_save": iterations,
-        "i_image": iterations, "steps_per_call": 10, **(overrides or {}),
+        "i_image": iterations, "steps_per_call": 10,
+        # the SIREN backbone takes the lego_siren ablation's settings, as
+        # the JAX tool does (nerf/configs/lego_siren.json)
+        **(SIREN_OVERRIDES if use_siren else {}), **(overrides or {}),
     }, NERF_TRAIN_DEFAULTS)
     # a fresh run every time: a checkpoint at `iterations` would resume into
     # a 0-step no-op and validate the previous run
@@ -240,7 +242,8 @@ def parse_args(argv):
     p.add_argument("size", nargs="?", type=int, default=64)
     p.add_argument("--scene", choices=sorted(SCENES), default="easy")
     p.add_argument("--siren", action="store_true",
-                   help="the SIREN NeRF (not ported yet: raises)")
+                   help="the SIREN NeRF backbone (lego_siren's lr, no "
+                        "start-up crop, alpha loss)")
     p.add_argument("--device", default=None,
                    help="cpu to run on the CPU (default: CUDA)")
     p.add_argument("--out", default=None,
