@@ -68,9 +68,14 @@
 //    accumulation, then the chain rule through the direct PE, dx_d += 2^f
 //    (dpe[sin_f, d] cos(2^f x_d) - dpe[cos_f, d] sin(2^f x_d)), with accurate
 //    sinf/cosf (the 2^9 factor amplifies any error in the last bits).
-//    Bound: 1,344 B per point read or written, ~0.026 / ~0.079 ms: by
-//    bytes.  Its products run on the CUDA cores, each thread summing
-//    four columns for one point from 16-byte weight loads.
+//    Bound: 1,344 B per point read or written, ~0.026 / ~0.079 / ~0.105
+//    ms at 65,536 / 196,608 / 262,144 points: by bytes (its 33,792 MACs
+//    per point take ~4.5 us on the tensor cores, but ~0.066 ms as FMA on
+//    the CUDA cores at 65,536 points).  bf16: dx_tc_kernel (section "bf16:
+//    K4 on wgmma"): a persistent grid of 128-point tiles; the PE weights
+//    resident in shared memory as K-major B operands, the deltas streamed
+//    by TMA through a ring, the products on wgmma, the chain rule on the
+//    CUDA cores from the accumulators staged in shared memory.
 //
 // bf16 = 0 is the fp32 check mode (fp32 operands, FMA on the CUDA cores:
 // fwd_kernel, fwd_pipelined_kernel, bwd_delta_kernel, bwd_recompute_kernel,
@@ -483,7 +488,7 @@ bwd_recompute_kernel(const float* __restrict__ x, Params P,
 }
 
 // ---------------------------------------------------------------------------
-// K4: the input gradient through the PE
+// fp32: K4, the input gradient through the PE
 // ---------------------------------------------------------------------------
 
 constexpr int DX_TM = 32;                   // points per CTA: one per lane
@@ -497,61 +502,52 @@ constexpr size_t DX_SMEM =
 constexpr int JB = 4;  // dpe columns per thread
 
 // acc[jj] += sum_k dv[k] w[jj * kdim + k] for k = 0..kdim-1 in order, jj <
-// JB: dv a row of deltas in shared memory (fp32), w JB rows of weights
-// (kdim apart), read 16 bytes at a time.
-template <typename T>
-__device__ __forceinline__ void dx_dot(const float* dv, const T* w, int kdim,
-                                       float* acc) {
-  constexpr int V = pad16<T>();
-  for (int k = 0; k < kdim; k += V) {
-    alignas(16) float a[V];
-#pragma unroll
-    for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(a + i) =
-          *reinterpret_cast<const float4*>(dv + k + i);
+// JB: dv a row of deltas in shared memory, w JB rows of weights (kdim
+// apart), read 16 bytes at a time.
+__device__ __forceinline__ void dx_dot(const float* dv, const float* w,
+                                       int kdim, float* acc) {
+  for (int k = 0; k < kdim; k += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(dv + k);
 #pragma unroll
     for (int jj = 0; jj < JB; ++jj) {
-      alignas(16) T wv[V];
-      *reinterpret_cast<uint4*>(wv) =
-          *reinterpret_cast<const uint4*>(w + jj * kdim + k);
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[jj] += a[i] * to_f(wv[i]);
+      const float4 wv = *reinterpret_cast<const float4*>(w + jj * kdim + k);
+      acc[jj] += a.x * wv.x;
+      acc[jj] += a.y * wv.y;
+      acc[jj] += a.z * wv.z;
+      acc[jj] += a.w * wv.w;
     }
   }
 }
 
 // grid n / DX_TM.  dh9/dh5/dh0 rows have stride ld (elements).
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-dx_kernel(const float* __restrict__ x, Params P, const T* __restrict__ dh9,
-          const T* __restrict__ dh5, const T* __restrict__ dh0, int ld,
+dx_kernel(const float* __restrict__ x, Params P, const float* __restrict__ dh9,
+          const float* __restrict__ dh5, const float* __restrict__ dh0, int ld,
           float* __restrict__ dx) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* d = reinterpret_cast<float*>(smem);    // [DX_TM][DX_LD]
   float* dpe = d + DX_TM * DX_LD;               // [DX_TM][DPE_W + 1]
   float* xs = dpe + DX_TM * (DPE_W + 1);        // [DX_TM][IN_PAD]
   const size_t row0 = (size_t)blockIdx.x * DX_TM;
-  auto W = [&](int i) { return reinterpret_cast<const T*>(P.p[i]); };
+  auto W = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
 
-  // the tile's deltas: every thread's 16-byte loads issued, then widened
-  constexpr int V = pad16<T>(), CPR = PE_DW / V, PER = DX_TM * CPR / THREADS;
+  // the tile's deltas: all of a thread's 16-byte loads, then its stores
+  constexpr int CPR = PE_DW / 4, PER = DX_TM * CPR / THREADS;
   static_assert(DX_TM * CPR % THREADS == 0, "whole loads per thread");
-  uint4 raw[PER];
+  float4 raw[PER];
 #pragma unroll
   for (int it = 0; it < PER; ++it) {
-    const int i = threadIdx.x + it * THREADS, r = i / CPR, c = (i % CPR) * V;
+    const int i = threadIdx.x + it * THREADS, r = i / CPR, c = (i % CPR) * 4;
     const size_t row = (row0 + r) * (size_t)ld;
-    const T* src = c < RGB_HID ? dh9 + row + c
-                   : (c < RGB_HID + HID ? dh5 + row + c - RGB_HID
-                                        : dh0 + row + c - RGB_HID - HID);
-    raw[it] = *reinterpret_cast<const uint4*>(src);
+    const float* src = c < RGB_HID ? dh9 + row + c
+                       : (c < RGB_HID + HID ? dh5 + row + c - RGB_HID
+                                            : dh0 + row + c - RGB_HID - HID);
+    raw[it] = *reinterpret_cast<const float4*>(src);
   }
 #pragma unroll
   for (int it = 0; it < PER; ++it) {
-    const int i = threadIdx.x + it * THREADS, r = i / CPR, c = (i % CPR) * V;
-    const T* v = reinterpret_cast<const T*>(&raw[it]);
-#pragma unroll
-    for (int j = 0; j < V; ++j) d[r * DX_LD + c + j] = to_f(v[j]);
+    const int i = threadIdx.x + it * THREADS, r = i / CPR, c = (i % CPR) * 4;
+    *reinterpret_cast<float4*>(d + r * DX_LD + c) = raw[it];
   }
   for (int i = threadIdx.x; i < DX_TM * IN_PAD; i += THREADS)
     xs[i] = x[row0 * IN_PAD + i];
@@ -571,10 +567,10 @@ dx_kernel(const float* __restrict__ x, Params P, const T* __restrict__ dh9,
     if (pos ? j0 >= 60 : j0 - PE_POS >= 24) {
       // padding columns
     } else if (pos) {  // dh5 W5a^T and dh0 W0^T, summed apart
-      dx_dot<T>(dr + RGB_HID, W(W5A) + j0 * HID, HID, acc[0]);
-      dx_dot<T>(dr + RGB_HID + HID, W(W0) + j0 * HID, HID, acc[1]);
+      dx_dot(dr + RGB_HID, W(W5A) + j0 * HID, HID, acc[0]);
+      dx_dot(dr + RGB_HID + HID, W(W0) + j0 * HID, HID, acc[1]);
     } else {  // dh9 W9b^T
-      dx_dot<T>(dr, W(W9B) + (j0 - PE_POS) * RGB_HID, RGB_HID, acc[0]);
+      dx_dot(dr, W(W9B) + (j0 - PE_POS) * RGB_HID, RGB_HID, acc[0]);
     }
 #pragma unroll
     for (int jj = 0; jj < JB; ++jj) out_r[j0 + jj] = acc[0][jj] + acc[1][jj];
@@ -1074,6 +1070,259 @@ nerf_bwd_delta_tc_kernel(const __grid_constant__ CUtensorMap wmap,
 }
 
 // ---------------------------------------------------------------------------
+// bf16: K4 on wgmma
+// ---------------------------------------------------------------------------
+//
+// dx_tc_kernel: a persistent grid (one CTA per SM, or one per tile when
+// there are fewer) walks 128-point tiles, tile blockIdx.x + k gridDim.x.  A
+// CTA has one producer warp and two consumer warpgroups, 64 points of each
+// tile apiece.  The producer's one thread first loads the PE weights W5a,
+// W0 (64 x 256) and W9b (32 x 128) by TMA into shared memory, where they
+// stay: packed [in, out] with the PE column j as the row and the delta
+// column k contiguous, each 64-column block a 128-byte-swizzled box, so
+// they are wgmma's B operand, K-major, as they lie (72 KB; PE rows 60..63
+// and 24..31 are the packing's zeros).  Then it streams each tile's deltas
+// through a ring of DX_STAGES stages, one 64-column box of 128 points (16
+// KB) per stage, in DX order: dh5's four boxes, dh0's four, dh9's two.  The
+// boxes come from three 2-D tensor maps over the three column views, so one
+// kernel reads K2's workspace (row stride 2448) and K5's copy (640) alike.
+// Each consumer warpgroup multiplies its 64 rows of a stage, K-major A,
+// into dpe_p (wgmma.m64n64k16, dh5's boxes then dh0's: one fp32 sum over
+// K = 512) or dpe_d (m64n32k16, K = 128), and releases the stage once its
+// wgmmas have retired.  Epilogue: the accumulators to fp32 staging rows
+// [64][DX_ST] (dpe_p columns 0..63, dpe_d 64..95), then one thread per dx
+// element sums its frequencies, f = 0 up, with accurate sincosf (arguments
+// reach ~3,000 rad; no fast math), and stores dx, columns 6 and 7 zero:
+// warps 0-1 take the position's elements (10 frequencies), warps 2-3 the
+// direction's (4), three elements a thread, so a warp runs 30 or 12
+// iterations per tile and no lane idles in them.
+// Every tile runs the same instructions on the same shared-memory image
+// whatever the CTA count or the delta layout, so two launches are bitwise
+// equal and K2's deltas give K5's dx.
+//
+// What bounds it on an H100: bytes, 1,280 B of deltas and 64 B of x and dx
+// per point; each CTA also reads the 72 KB of weights once (from L2).  The
+// ring keeps up to 96 KB in flight per SM while the epilogue runs.
+
+constexpr int DX_TILE = 128;                           // points per tile
+constexpr int DX_BOX_BYTES = DX_TILE * DW_BOX * 2;     // 16384: one stage
+constexpr int DX_BOXES = 2 * HID / DW_BOX + RGB_HID / DW_BOX;  // 10 per tile
+constexpr int DX_STAGES = 6;
+// the resident weights W5a, W0, W9b at these offsets; a weight's block b
+// (delta columns 64 b..64 b + 63: one 128-byte row per PE row, swizzled)
+// at b x (its rows) x 128 bytes
+constexpr int DXW_W5A = 0, DXW_W0 = PE_POS * HID * 2;
+constexpr int DXW_W9B = 2 * PE_POS * HID * 2;
+constexpr int DXW_BYTES = DXW_W9B + PE_DIR * RGB_HID * 2;  // 73728
+constexpr int DX_ST = PE_POS + PE_DIR + 8;  // fp32 staging row: 104 (float2
+                                            // stores without bank conflicts)
+constexpr int DX_ST_BYTES = TC_TILE * DX_ST * 4;       // per warpgroup
+constexpr int DX_CONSUMERS = 2 * TC_WG;
+constexpr int DX_THREADS = DX_CONSUMERS + 32;          // and a producer warp
+constexpr size_t DX_TC_SMEM = 1024 + DXW_BYTES
+                              + (size_t)DX_STAGES * DX_BOX_BYTES
+                              + 2 * (size_t)DX_ST_BYTES
+                              + (1 + 2 * DX_STAGES) * 8;
+static_assert(DX_TC_SMEM <= 232448, "K4 exceeds shared memory");
+static_assert(DXW_BYTES % 1024 == 0 && DX_ST_BYTES % 8 == 0, "alignment");
+
+// D[64, 64] (+)= A[64, 16] B[16, 64]: bf16 operands in shared memory, both
+// K-major (no transpose), fp32 accumulators; accumulate = 0 ignores D.
+__device__ __forceinline__ void wgmma_m64n64k16_kk(float* d, uint64_t da,
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64, 32] (+)= A[64, 16] B[16, 32]: as wgmma_m64n64k16_kk.
+__device__ __forceinline__ void wgmma_m64n32k16_kk(float* d, uint64_t da,
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The products of stage q of a tile (DX order) for the warpgroup whose 64
+// rows of the stage start at shared address a: dpe_p (ap) from dh5's and
+// dh0's boxes, dpe_d (ad) from dh9's; the first box of each starts the sum.
+__device__ __forceinline__ void dx_box_product(float* ap, float* ad,
+                                               uint32_t a, int q,
+                                               uint32_t wts) {
+#pragma unroll
+  for (int k = 0; k < DW_BOX / 16; ++k) {
+    const uint64_t da = gmma_desc(a + k * 32, TC_A_LBO, TC_A_SBO);
+    if (q < 8) {
+      const uint32_t b = wts + (q < 4 ? DXW_W5A : DXW_W0)
+                         + (q % 4) * PE_POS * 128 + k * 32;
+      wgmma_m64n64k16_kk(ap, da, gmma_desc(b, TC_A_LBO, TC_A_SBO),
+                         q > 0 || k > 0);
+    } else {
+      const uint32_t b = wts + DXW_W9B + (q - 8) * PE_DIR * 128 + k * 32;
+      wgmma_m64n32k16_kk(ad, da, gmma_desc(b, TC_A_LBO, TC_A_SBO),
+                         q > 8 || k > 0);
+    }
+  }
+}
+
+// the named barrier of consumer warpgroup wg
+__device__ __forceinline__ void dx_wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// grid min(SMs, tiles); x and dx [n, 8] fp32; w5a/w0/w9b maps over the
+// packed weights (boxes of all their rows), dh5/dh0/dh9 over the delta
+// views (boxes of DX_TILE rows).
+__global__ void __launch_bounds__(DX_THREADS, 1)
+dx_tc_kernel(const __grid_constant__ CUtensorMap w5a_map,
+             const __grid_constant__ CUtensorMap w0_map,
+             const __grid_constant__ CUtensorMap w9b_map,
+             const __grid_constant__ CUtensorMap dh5_map,
+             const __grid_constant__ CUtensorMap dh0_map,
+             const __grid_constant__ CUtensorMap dh9_map,
+             const float* __restrict__ x, float* __restrict__ dx,
+             int n_tiles) {
+  extern __shared__ unsigned char dx_smem_raw[];
+  const uint32_t raw = smem_u32(dx_smem_raw);
+  const uint32_t wts = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
+  const uint32_t ring = wts + DXW_BYTES;
+  const uint32_t staging = ring + DX_STAGES * DX_BOX_BYTES;
+  const uint32_t wbar = staging + 2 * DX_ST_BYTES;
+  const uint32_t full = wbar + 8, empty = full + 8 * DX_STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(wbar, 1);
+    for (int s = 0; s < DX_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, DX_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DX_CONSUMERS) {  // the producer warp: one thread
+    if (threadIdx.x == DX_CONSUMERS) {
+      mbar_expect_tx(wbar, DXW_BYTES);
+      for (int b = 0; b < HID / DW_BOX; ++b) {
+        tma_load_2d(wts + DXW_W5A + b * PE_POS * 128, &w5a_map, b * DW_BOX,
+                    0, wbar);
+        tma_load_2d(wts + DXW_W0 + b * PE_POS * 128, &w0_map, b * DW_BOX, 0,
+                    wbar);
+      }
+      for (int b = 0; b < RGB_HID / DW_BOX; ++b)
+        tma_load_2d(wts + DXW_W9B + b * PE_DIR * 128, &w9b_map, b * DW_BOX,
+                    0, wbar);
+      int it = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+        for (int q = 0; q < DX_BOXES; ++q, ++it) {
+          const int s = it % DX_STAGES;
+          mbar_wait(empty + 8 * s, ((it / DX_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, DX_BOX_BYTES);
+          const CUtensorMap* m =
+              q < 4 ? &dh5_map : (q < 8 ? &dh0_map : &dh9_map);
+          tma_load_2d(ring + s * DX_BOX_BYTES, m, (q < 8 ? q % 4 : q - 8)
+                      * DW_BOX, t * DX_TILE, full + 8 * s);
+        }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / TC_WG, tid = threadIdx.x % TC_WG;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
+  float* st = reinterpret_cast<float*>(dx_smem_raw + (staging - raw))
+              + wg * TC_TILE * DX_ST;
+  // the chain rule's (point, coordinate) pairs: warps 0-1 take the three
+  // position coordinates (10 frequencies), warps 2-3 the direction's (4),
+  // pair i = ct + 64 k (k < 3) the point i / 3's coordinate i % 3
+  const bool dir = warp >= 2;
+  const int ct = tid % 64, n_freq = dir ? 4 : 10, c0 = dir ? 3 : 0;
+  mbar_wait(wbar, 0);
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const size_t e0 = ((size_t)t * DX_TILE + wg * TC_TILE) * IN_PAD;
+    float xv[3];  // the x of this thread's pairs
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int i = ct + 64 * k;
+      xv[k] = __ldg(x + e0 + (i / 3) * IN_PAD + c0 + i % 3);
+    }
+    float ap[PE_POS / 2], ad[PE_DIR / 2];
+#pragma unroll
+    for (int q = 0; q < DX_BOXES; ++q, ++it) {
+      const int s = it % DX_STAGES;
+      mbar_wait(full + 8 * s, (it / DX_STAGES) & 1);
+      __syncwarp();  // wgmma is .aligned: the warp leaves the wait together
+      wgmma_fence();
+      dx_box_product(ap, ad, ring + s * DX_BOX_BYTES + wg * TC_A_BLOCK, q,
+                     wts);
+      wgmma_commit();
+      if (q > 0) {
+        wgmma_wait<1>();
+        mbar_arrive(empty + 8 * ((it - 1) % DX_STAGES));
+      }
+    }
+    wgmma_wait0();
+    mbar_arrive(empty + 8 * ((it - 1) % DX_STAGES));
+    // register 4 j + 2 h + c: row 16 warp + lane / 4 + 8 h, column 8 j +
+    // 2 (lane % 4) + c
+    const int r0 = warp * 16 + lane / 4, q0 = 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = st + (r0 + 8 * h) * DX_ST + q0;
+#pragma unroll
+      for (int j = 0; j < PE_POS / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j) =
+            make_float2(ap[4 * j + 2 * h], ap[4 * j + 2 * h + 1]);
+#pragma unroll
+      for (int j = 0; j < PE_DIR / 8; ++j)
+        *reinterpret_cast<float2*>(row + PE_POS + 8 * j) =
+            make_float2(ad[4 * j + 2 * h], ad[4 * j + 2 * h + 1]);
+    }
+    dx_wg_sync(wg);
+    // dx[r, c] = sum_f 2^f (dpe[sin_f, c] cos(2^f x) - dpe[cos_f, c]
+    // sin(2^f x)), f = 0 up (dpe_d's columns 64.. for the direction)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int i = ct + 64 * k, r = i / 3;
+      const float* dp = st + r * DX_ST + (dir ? PE_POS : 0) + i % 3;
+      float g = 0.f;
+      for (int f = 0; f < n_freq; ++f) {
+        const float sc = (float)(1 << f);
+        float sn, cs;
+        sincosf(xv[k] * sc, &sn, &cs);
+        g += sc * (dp[6 * f] * cs - dp[6 * f + 3] * sn);
+      }
+      dx[e0 + r * IN_PAD + c0 + i % 3] = g;
+    }
+    if (dir)  // the zero columns
+      *reinterpret_cast<float2*>(dx + e0 + ct * IN_PAD + 6) =
+          make_float2(0.f, 0.f);
+    dx_wg_sync(wg);  // the staging rows are read before the next tile
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -1183,16 +1432,42 @@ int bwd_chunks(F tile, const void* acts, const void* deltas, int chunk_rows,
   return (int)sum_splits(partials, dw, total, splits, 0, st);
 }
 
-template <typename T>
+// fp32 K4: one CTA per DX_TM points
 int dx_launch(const float* x, const Params& P, const void* dh9,
               const void* dh5, const void* dh0, int ld, float* dx, int n,
               cudaStream_t st) {
-  auto kern = dx_kernel<T>;
-  cudaError_t e = set_smem(kern, DX_SMEM);
+  cudaError_t e = set_smem(dx_kernel, DX_SMEM);
   if (e != cudaSuccess) return (int)e;
-  kern<<<n / DX_TM, THREADS, DX_SMEM, st>>>(
-      x, P, reinterpret_cast<const T*>(dh9), reinterpret_cast<const T*>(dh5),
-      reinterpret_cast<const T*>(dh0), ld, dx);
+  dx_kernel<<<n / DX_TM, THREADS, DX_SMEM, st>>>(
+      x, P, reinterpret_cast<const float*>(dh9),
+      reinterpret_cast<const float*>(dh5),
+      reinterpret_cast<const float*>(dh0), ld, dx);
+  return (int)cudaGetLastError();
+}
+
+// bf16 K4: dx_tc_kernel over n / DX_TILE tiles on min(SMs, tiles) CTAs.
+int dx_tc_launch(const float* x, const Params& P, const void* dh9,
+                 const void* dh5, const void* dh0, int ld, float* dx, int n,
+                 cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  CUtensorMap w5a, w0, w9b, m5, m0, m9;
+  if (e == cudaSuccess)
+    e = make_view_map(&w5a, P.p[W5A], HID, HID, PE_POS, PE_POS);
+  if (e == cudaSuccess)
+    e = make_view_map(&w0, P.p[W0], HID, HID, PE_POS, PE_POS);
+  if (e == cudaSuccess)
+    e = make_view_map(&w9b, P.p[W9B], RGB_HID, RGB_HID, PE_DIR, PE_DIR);
+  if (e == cudaSuccess) e = make_view_map(&m5, dh5, HID, ld, n, DX_TILE);
+  if (e == cudaSuccess) e = make_view_map(&m0, dh0, HID, ld, n, DX_TILE);
+  if (e == cudaSuccess) e = make_view_map(&m9, dh9, RGB_HID, ld, n, DX_TILE);
+  if (e == cudaSuccess) e = set_smem(dx_tc_kernel, DX_TC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = n / DX_TILE;
+  dx_tc_kernel<<<min(sms, n_tiles), DX_THREADS, DX_TC_SMEM, st>>>(
+      w5a, w0, w9b, m5, m0, m9, x, dx, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -1313,14 +1588,15 @@ extern "C" int nerf_mlp_bwd(const float* x, const void* const* w,
 }
 
 // K4: dx [n, 8] from x [n, 8] and the deltas dh9 [n, 128], dh5 and dh0
-// [n, 256], rows ld elements apart (16-byte aligned rows).
+// [n, 256], rows ld elements apart (16-byte aligned rows); n a multiple of
+// 128.
 extern "C" int nerf_mlp_dx(const float* x, const void* const* w,
                            const void* dh9, const void* dh5, const void* dh0,
                            int ld, float* dx, int n, int bf16, void* stream) {
   static_assert(DX_TM * IN_PAD == THREADS, "one thread per dx element");
-  if (n % DX_TM || ld < HID || ld % 8) return (int)cudaErrorInvalidValue;
+  if (n % DX_TILE || ld < HID || ld % 8) return (int)cudaErrorInvalidValue;
   const Params P = make_params(w);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return bf16 ? dx_launch<bf16_t>(x, P, dh9, dh5, dh0, ld, dx, n, st)
-              : dx_launch<float>(x, P, dh9, dh5, dh0, ld, dx, n, st);
+  return bf16 ? dx_tc_launch(x, P, dh9, dh5, dh0, ld, dx, n, st)
+              : dx_launch(x, P, dh9, dh5, dh0, ld, dx, n, st);
 }

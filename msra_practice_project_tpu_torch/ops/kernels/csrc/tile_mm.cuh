@@ -984,15 +984,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 [rows, ld] row-major tensor map with boxes of PK rows x 64 columns
-// and 128-byte swizzle (boxes past the row end or the last row read zeros).
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int ld,
-                            int rows) {
+// A bf16 tensor map over `rows` rows of `width` columns that lie `ld`
+// elements apart (a column view of wider rows when width < ld), with boxes
+// of box_rows rows x 64 columns and 128-byte swizzle (boxes past the row
+// end or the last row read zeros).
+inline cudaError_t make_view_map(CUtensorMap* map, const void* ptr,
+                                 int width, int ld, int rows, int box_rows) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)ld, (cuuint64_t)rows};
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16_t)};
-  const cuuint32_t box[2] = {DW_BOX, PK}, unit[2] = {1, 1};
+  const cuuint32_t box[2] = {DW_BOX, (cuuint32_t)box_rows}, unit[2] = {1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                          const_cast<void*>(ptr), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1000,6 +1002,12 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int ld,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 [rows, ld] row-major tensor map with boxes of PK rows x 64 columns.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int ld,
+                            int rows) {
+  return make_view_map(map, ptr, ld, ld, rows, PK);
 }
 
 // dw = (accumulate ? dw : 0) + sum over splits, in split order.

@@ -14,7 +14,9 @@ wgmma (``nerf_fwd_tc_kernel``) and K2's delta chain another
 (``nerf_bwd_delta_tc_kernel``), K5 runs both per chunk; each streams one
 weight stack (``weight_stacks``, in the order of ``FWD_SCHEDULE`` and
 ``BWD_SCHEDULE``, 32 rows per stage) and moves activations and deltas by
-TMA in boxes of 64 columns.
+TMA in boxes of 64 columns.  K4 in bf16 (``dx_tc_kernel``) keeps W5a, W0
+and W9b in shared memory and streams the deltas it reads by TMA, from K2's
+workspace or K5's copy alike, into wgmma products.
 
 Each kernel has a plain PyTorch version here with the same ``bf16`` switch:
 with ``bf16=True`` it rounds matmul operands and stored activations to bf16

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""The bf16 per-tile kernels of the NeRF MLP (csrc/nerf_mlp.cu: the forward
-nerf_fwd_tc_kernel of K1/K3/K6 and K2's delta chain nerf_bwd_delta_tc_kernel)
-on one GPU, by what their time goes to.
+"""The bf16 kernels of the NeRF MLP (csrc/nerf_mlp.cu: the forward
+nerf_fwd_tc_kernel of K1/K3/K6, K2's delta chain nerf_bwd_delta_tc_kernel
+and K4's dx_tc_kernel) on one GPU, by what their time goes to.
 
 Builds csrc/nerf_mlp.cu as it is and variants of it, each a copy with text
 edits (the variants' results are not meant to be right), one nvcc each, all
-started together, and times K1 (forward with the spill), K3 (forward alone)
-and the delta chain alone (bf16; CUDA events, median of 10 launches after
-two warm-ups, each launch alone and 10 back to back, so that the host's
-work per launch overlaps the device's; the per-tile kernel alone from a
-torch.profiler trace of 10 launches), and the weight stacks alone, at N
-points (default 65,536, the coarse pass) on chip_smoke.py's inputs, each
-variant in its own process:
+started together, and times K1 (forward with the spill), K3 (forward alone),
+the delta chain alone and K4 (on K5's copy of the deltas, and "K4_k2" on
+K2's delta workspace) (bf16; CUDA events, median of 10 launches after two
+warm-ups, each launch alone and 10 back to back, so that the host's work
+per launch overlaps the device's; each kernel alone from a torch.profiler
+trace of 10 launches), and the weight stacks alone, at N points (default
+65,536, the coarse pass) on chip_smoke.py's inputs, each variant in its own
+process:
   as_is            the source as it is;
   no_epilogue      the epilogues' walks over the accumulators removed: what
                    is left is the TMA weight stream, the wgmma products, the
@@ -23,9 +24,17 @@ variant in its own process:
   no_delta_stores  the delta chain's TMA stores of A to the workspaces
                    removed;
   jb2, jb4, jb16   the epilogues' blocks of TC_JB = 2, 4 or 16 steps of j,
-                   not 8 (16: h9's 128 columns in one block).
+                   not 8 (16: h9's 128 columns in one block);
+  k4_no_chain      K4's chain rule (the sincosf loop) removed: the weights'
+                   load, the delta stream, the products, the staging and
+                   the dx stores are left;
+  k4_stream        K4's products removed as well: the weights' load and
+                   the delta stream through the ring, each stage released
+                   as soon as it lands, and the dx stores;
+  k4_stages3       K4's ring of 3 stages, not 6.
 
-Usage: python3 tools/torch_nerf_probe.py [N]
+Usage: python3 tools/torch_nerf_probe.py [N] [--only name,name,...]
+  (--only: the variants to build and time; default all)
 """
 
 from __future__ import annotations
@@ -44,6 +53,11 @@ sys.path.insert(0, ROOT)
 _FWD_WALK = "  for (int jb = 0; jb < NCOL / 8; jb += TC_JB) {"
 _BWD_WALK = "  for (int jb = 0; jb < HID / 8; jb += TC_JB) {"
 _JB = "constexpr int TC_JB = 8;"
+_K4_CHAIN = """      for (int f = 0; f < n_freq; ++f) {
+        const float sc = (float)(1 << f);
+        float sn, cs;"""
+_K4_PRODUCT = """      dx_box_product(ap, ad, ring + s * DX_BOX_BYTES + wg * TC_A_BLOCK, q,
+                     wts);"""
 _MASK_LOAD = """      mbar_expect_tx(mbar, 8 * DW_BOX_BYTES);
       tc_load_tile(mask, &amap, A_H0 + (l - 1) * HID, c.row0, 4, mbar);"""
 
@@ -61,6 +75,11 @@ EDITS = {
     "jb2": [(_JB, "constexpr int TC_JB = 2;")],
     "jb4": [(_JB, "constexpr int TC_JB = 4;")],
     "jb16": [(_JB, "constexpr int TC_JB = 16;")],
+    "k4_no_chain": [(_K4_CHAIN, _K4_CHAIN.replace("f < n_freq", "f < 0"))],
+    "k4_stream": [(_K4_CHAIN, _K4_CHAIN.replace("f < n_freq", "f < 0")),
+                  (_K4_PRODUCT, "")],
+    "k4_stages3": [("constexpr int DX_STAGES = 6;",
+                    "constexpr int DX_STAGES = 3;")],
 }
 
 
@@ -79,8 +98,8 @@ def variants(src: str) -> dict:
 
 
 def time_variant(lib_path: str, n: int) -> dict:
-    """K1, K3 and the delta chain with the NeRF library at lib_path (this
-    process only)."""
+    """K1, K3, the delta chain and K4 with the NeRF library at lib_path
+    (this process only)."""
     import torch
 
     import chip_smoke as cs
@@ -94,9 +113,13 @@ def time_variant(lib_path: str, n: int) -> dict:
     x, dy = x.cuda(), dy.cuda()
     wk = [t.cuda() for t in K.kernel_weights(w, True)]
     _, acts = K.nerf_mlp_fwd_save(x, wk, True)
+    dh2 = K.nerf_mlp_bwd_saved(wk, dy, acts, True)[1]
+    dh5 = K.nerf_mlp_bwd(x, wk, dy, True, True)[1]
     runs = {"K1": lambda: K.nerf_mlp_fwd_save(x, wk, True),
             "K3": lambda: K.nerf_mlp_fwd(x, wk, True),
-            "deltas": lambda: K.nerf_mlp_deltas(wk, dy, acts, True)}
+            "deltas": lambda: K.nerf_mlp_deltas(wk, dy, acts, True),
+            "K4": lambda: K.nerf_mlp_dx(x, wk, dh5, True),
+            "K4_k2": lambda: K.nerf_mlp_dx(x, wk, dh2, True)}
     out = {f"{k}_ms": cs.time_ms(torch, f, 10) for k, f in runs.items()}
     # the same launches back to back, 10 between two events: the host's
     # per-launch work (weight stacks, allocations) overlaps the device's
@@ -108,7 +131,8 @@ def time_variant(lib_path: str, n: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     for k, name in (("K1", "nerf_fwd_tc_kernel<true>"),
                     ("K3", "nerf_fwd_tc_kernel<false>"),
-                    ("deltas", "nerf_bwd_delta_tc_kernel")):
+                    ("deltas", "nerf_bwd_delta_tc_kernel"),
+                    ("K4", "dx_tc_kernel"), ("K4_k2", "dx_tc_kernel")):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 runs[k]()
@@ -129,13 +153,20 @@ def main() -> int:
         return 2
     from msra_practice_project_tpu_torch.ops.kernels import build
 
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
+    args = sys.argv[1:]
+    only = None
+    if "--only" in args:
+        i = args.index("--only")
+        only = args[i + 1].split(",")
+        del args[i:i + 2]
+    n = int(args[0]) if args else 65536
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     with open(os.path.join(build.CSRC, "nerf_mlp.cu")) as f:
-        srcs = variants(f.read())
+        srcs = {k: v for k, v in variants(f.read()).items()
+                if only is None or k in only}
     res = {"device": smi, "points": n}
     with tempfile.TemporaryDirectory(prefix="nerf_probe_") as tmp:
         for h in os.listdir(build.CSRC):
