@@ -154,6 +154,22 @@ the port as plain PyTorch in strict fp32), every counter set to 0 first:
      eval.test_sdf on their runs.  The SIREN NeRF gate
      (tools/torch_validate_nerf.py 5000 64 --siren) runs by hand: at ~115
      ms a step it would take this run past 900 s.
+Operations and scale-out (tools/torch_dp_check.py, run as a child process;
+its own docstring has the details):
+  25. data parallelism on the one card over two gloo ranks (NCCL refuses
+     two ranks on one device): 3 lego-recipe NeRF steps through K1/K2 (512
+     rays a rank) and 2 pi-GAN iterations at test.json's stage 0 in mode 1
+     (32 latents a rank, K8 in fp32 and K7), their averaged gradients
+     within 5e-2 relative Frobenius norm and losses within 1e-3 of one
+     process at the same weights, the launches counted on each rank, a
+     second NeRF run equal bitwise; a 100x100 eval view split over the
+     ranks equal bitwise to the plain render; a one-rank NCCL group's NeRF
+     step equal bitwise to a process without a group; the package's dry
+     run (dryrun.dryrun_multichip) over two gloo ranks on the card;
+  26. exact resume: train_nerf on the lego recipe, 20 steps against 10 and
+     a resumed 10, losses and weights equal bitwise;
+  27. profile_steps' trace names K1's and K2's kernels; debug_nans is
+     silent on a clean run and raises on a NaN-poisoned batch.
 The split-K pass's launches are counted over every path: 2 per NeRF step
 (K2's), 1 per K5 chunk, 1 per K7 chunk; the delta chain's: 2 per NeRF step
 (K2's), 1 per bf16 K5 chunk.
@@ -2496,6 +2512,11 @@ def main() -> int:
     pigan_rest(torch, FK, summary, kernels)
     summary["siren"] = siren_stack(torch, K, FK)
 
+    phase("data parallelism (2 gloo ranks on the card, a one-rank NCCL "
+          "group), exact resume, profile_steps and debug_nans: "
+          "tools/torch_dp_check.py (phases 25-27)")
+    summary["operations"] = dp_check()
+
     print(json.dumps(summary))
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2503,6 +2524,23 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def dp_check() -> dict:
+    """Phases 25-27: tools/torch_dp_check.py in a child process (its ranks
+    are processes of their own); its output is shown, and its last line, a
+    JSON summary, is returned.  Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "torch_dp_check.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=700)
+    print(res.stdout, end="", flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-6000:], file=sys.stderr, flush=True)
+        raise SystemExit(f"tools/torch_dp_check.py exited {res.returncode}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"  phases 25-27: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def by_kernel(t, pre):

@@ -3,9 +3,11 @@
 and render one view.
 
 Renders use the plain models (``NeRFModel.forward``), as the JAX eval path
-does: the fused kernels serve the train step only.  Rendering runs on one
-device; the JAX package's sharded render over a multi-chip mesh waits for
-the port's ``torch.distributed`` work.
+does: the fused kernels serve the train step only.  Under a process group
+of more than one rank (``parallel/mesh.py``) a view's ray tiles are split
+over the ranks (``ops.render.render_image``), as the JAX package's
+``render_image_sharded`` splits them over its chips.  ``load_experiment``
+also reads a JAX run's directory.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import os
 
 import torch
 
-from .. import resolve_device, set_plain_precision
+from .. import resolve_device, set_plain_precision, weights
 from ..core import ckpt as ckpt_lib
 from ..core.config import NERF_TRAIN_DEFAULTS, load_config, resolve
 from ..models.nerf import nerf_model
@@ -26,9 +28,9 @@ def load_experiment(log_path: str, ckpt_idx: int | None = None,
     """Re-read the resolved config written at train time
     (ref: nerf/test_nerf.py:16-21), rebuild both models and restore the
     requested checkpoint (the newest readable one when ``ckpt_idx`` is
-    None).  Returns (config, (coarse_model, fine_model), checkpoint, step);
-    ``fine_model`` is None without ``use_fine_model``.  Runs on CUDA unless
-    ``device='cpu'``."""
+    None), the port's or a JAX run's.  Returns (config, (coarse_model,
+    fine_model), checkpoint, step); ``fine_model`` is None without
+    ``use_fine_model``.  Runs on CUDA unless ``device='cpu'``."""
     device = resolve_device(device)
     set_plain_precision()
     config = resolve(load_config(os.path.join(log_path, "config.json")),
@@ -42,6 +44,7 @@ def load_experiment(log_path: str, ckpt_idx: int | None = None,
         if found is None:
             raise FileNotFoundError(f"no checkpoint under {log_path}")
         step, state = found
+    state = weights.restore_state(state, "nerf")
     models = []
     for name in ("coarse", "fine"):
         if name == "fine" and not config["use_fine_model"]:
@@ -72,7 +75,9 @@ def render_view(config, models, width, height, focal, pose,
                 generator: torch.Generator | None = None,
                 sample_mult: float = 1.0, chunk: int = 16384):
     """Render one full frame on the models' device; ``generator`` (on that
-    device) draws the stratified jitter.  Returns numpy (rgb ``[H,W,3]``,
+    device) draws the stratified jitter.  Under a process group every rank
+    calls it: the ray tiles are split over the ranks and every rank gets
+    the whole frame (``render_image``).  Returns numpy (rgb ``[H,W,3]``,
     depth and acc ``[H,W,1]``)."""
     coarse_fn, fine_fn = model_fns(config, models)
     nc = int(sample_mult * config["render_coarse_sample_num"])

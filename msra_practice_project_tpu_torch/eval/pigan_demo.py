@@ -30,7 +30,7 @@ import sys
 import numpy as np
 import torch
 
-from .. import resolve_device, set_plain_precision
+from .. import resolve_device, set_plain_precision, weights
 from ..core import ckpt as ckpt_lib
 from ..core import diagnostics, image_io
 from ..core.config import PIGAN_TRAIN_DEFAULTS, log_dir
@@ -233,9 +233,10 @@ def demo_style_mix(gen_model, file_name, rows, pose=(0.0, 0.0),
 def load_generator(config, device=None):
     """Rebuild G and D from the experiment's newest checkpoint
     (``{"g": state_dict, "d": state_dict, ...}``, as train_pigan writes
-    it), frozen for inference: (generator, discriminator, step).  Warns and
-    keeps a fresh init when there is no checkpoint.  Sets the plain fp32
-    precision the trainer runs D at (``set_plain_precision``)."""
+    it, or a JAX run's), frozen for inference: (generator, discriminator,
+    step).  Warns and keeps a fresh init when there is no checkpoint.  Sets
+    the plain fp32 precision the trainer runs D at
+    (``set_plain_precision``)."""
     device = resolve_device(device)
     set_plain_precision()
     gen_cfg = pigan.GeneratorConfig(
@@ -254,6 +255,7 @@ def load_generator(config, device=None):
         step = 0
     else:
         step, saved = found
+        saved = weights.restore_state(saved, "pigan")
         generator.load_state_dict(saved["g"])
         discriminator.load_state_dict(saved["d"])
     generator.requires_grad_(False)

@@ -1,6 +1,6 @@
 """Hierarchical (coarse/fine) volume rendering (port of
 ``msra_practice_project_tpu/ops/render.py``: ``render_rays``,
-``render_image`` and ``render_video``).
+``render_image``, ``render_image_sharded`` and ``render_video``).
 
 The model is a function ``model_fn(x[..., 6]) -> [..., 4]``.  Randomness is
 explicit: a ``torch.Generator`` draws the stratified jitter, or the caller
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .composite import raw_to_outputs
 from .rays import get_rays_flat
 from .sampling import sample_pdf, stratified_samples
@@ -78,29 +79,55 @@ def render_image(width, height, focal, c2w, near, far, coarse_fn, fine_fn,
     (ref: nerf/render.py:150-167).  Returns (rgb ``[H,W,3]``, depth
     ``[H,W,1]``, acc ``[H,W,1]``) tensors on ``device``.  ``jitter``
     (``[H*W, coarse_sample_num]``, pixels in row-major order) replaces the
-    generator's stratified draws."""
-    chunk = min(chunk, width * height)
+    generator's stratified draws.
+
+    Under a process group of n ranks (``parallel/mesh.py``) every rank must
+    call it: the tiles are split over the ranks as the JAX package's
+    ``render_image_sharded`` splits them over its chips.  ``chunk`` is cut
+    to at most a rank's share of the rays, the rays are padded to a whole
+    number of tiles per rank, each rank renders its contiguous block of
+    tiles and the blocks are gathered to every rank
+    (``mesh.all_gather_rows``).  Every rank draws every tile's jitter, in
+    tile order, and keeps its own, so the image is the one a single process
+    renders with the same tiles from the same generator state (exactly so
+    with ``perturb=False``)."""
+    n_dev = mesh.world()
+    chunk = min(chunk, max(1, -(-width * height // n_dev)))
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
     rays_o, rays_d = get_rays_flat(width, height, focal, c2w)
-    rays_o, n = _pad_to_multiple(rays_o, chunk)
-    rays_d, _ = _pad_to_multiple(rays_d, chunk)
+    rays_o, n = _pad_to_multiple(rays_o, chunk * n_dev)
+    rays_d, _ = _pad_to_multiple(rays_d, chunk * n_dev)
     if jitter is not None:
-        jitter, _ = _pad_to_multiple(jitter.to(rays_o.device), chunk)
-    rgbs, depths, accs = [], [], []
-    for lo in range(0, rays_o.shape[0], chunk):
-        out = render_rays(rays_o[lo:lo + chunk], rays_d[lo:lo + chunk], near,
-                          far, coarse_fn, fine_fn, coarse_sample_num,
-                          fine_sample_num, perturb, white_bkgd,
-                          generator=generator,
-                          jitter=None if jitter is None
-                          else jitter[lo:lo + chunk])
-        rgbs.append(out["rgb_fine"])
-        depths.append(out["depth_fine"])
-        accs.append(out["acc_fine"])
-    rgb = torch.cat(rgbs)[:n].reshape(height, width, 3)
-    depth = torch.cat(depths)[:n].reshape(height, width, 1)
-    acc = torch.cat(accs)[:n].reshape(height, width, 1)
-    return rgb, depth, acc
+        jitter, _ = _pad_to_multiple(jitter.to(rays_o.device), chunk * n_dev)
+    per_rank = rays_o.shape[0] // (chunk * n_dev)
+    first = mesh.rank() * per_rank
+    block = []
+    for t in range(per_rank * n_dev):
+        rows = slice(t * chunk, (t + 1) * chunk)
+        if jitter is not None:
+            tile_jitter = jitter[rows]
+        elif perturb:
+            tile_jitter = torch.rand((chunk, coarse_sample_num),
+                                     generator=generator, dtype=rays_o.dtype,
+                                     device=rays_o.device)
+        else:
+            tile_jitter = None
+        if not first <= t < first + per_rank:
+            continue
+        out = render_rays(rays_o[rows], rays_d[rows], near, far, coarse_fn,
+                          fine_fn, coarse_sample_num, fine_sample_num,
+                          perturb, white_bkgd, jitter=tile_jitter)
+        block.append(torch.cat([out["rgb_fine"], out["depth_fine"][:, None],
+                                out["acc_fine"][:, None]], dim=-1))
+    full = mesh.all_gather_rows(torch.cat(block))[:n]
+    return (full[:, :3].reshape(height, width, 3),
+            full[:, 3:4].reshape(height, width, 1),
+            full[:, 4:5].reshape(height, width, 1))
+
+
+# The JAX package's name for the multi-chip render, which here is
+# ``render_image`` itself.
+render_image_sharded = render_image
 
 
 def render_video(width, height, focal, poses, near, far, coarse_fn, fine_fn,

@@ -1,9 +1,12 @@
 """Shared trainer plumbing (port of
 ``msra_practice_project_tpu/train/common.py``): learning-rate schedules,
-Adam, train state, resume, parameter counts and CLI.
+Adam, train state, resume (from the port's checkpoints or the JAX
+package's), the step profiler, parameter counts and CLI.
 
 Every driver is ``python -m msra_practice_project_tpu_torch.train.<name>
-<config.json> [key=value ...]``.
+<config.json> [key=value ...] [--device D] [--backend B]``; under
+``torchrun`` it joins the process group first (``parallel/mesh.py``) and
+trains data-parallel.
 """
 
 from __future__ import annotations
@@ -15,8 +18,18 @@ import time
 
 import torch
 
+from .. import weights
 from ..core import ckpt as ckpt_lib
 from ..core.config import Config, load_config, resolve
+from ..core.diagnostics import StepProfiler
+from ..parallel import mesh
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """The seed of element ``i`` of the stream seeded ``seed``: a pure
+    function of both, so a resumed run draws what the uninterrupted run
+    drew."""
+    return seed * 1_000_003 + i
 
 
 def exponential_lr(base_lr: float, decay_thousands: float,
@@ -88,20 +101,62 @@ def state_dict(state: dict) -> dict:
             "opt": state["opt"].state_dict(), "step": state["step"]}
 
 
-def resume(log_path: str, state: dict) -> tuple[int, dict]:
+def load_adam(opt: Adam, saved: dict, models: dict) -> None:
+    """Load an optimizer checkpoint into ``opt``: the port's own
+    (``Adam.state_dict``) or the named form ``weights.train_state_from_jax``
+    makes of a JAX one (``{"count", "exp_avg": {model name: state_dict},
+    "exp_avg_sq": ...}``), whose names are those of ``models``' parameters.
+    The count becomes the wrapper's ``count`` and torch's per-parameter
+    ``step``."""
+    if "exp_avg" not in saved:
+        opt.load_state_dict(saved)
+        return
+    names = {id(p): (m, n) for m, module in models.items()
+             for n, p in module.named_parameters()}
+    count = int(saved["count"])
+    for group in opt.opt.param_groups:
+        for p in group["params"]:
+            m, n = names[id(p)]
+            opt.opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": saved["exp_avg"][m][n].to(p),
+                "exp_avg_sq": saved["exp_avg_sq"][m][n].to(p)}
+    opt.count = count
+
+
+def resume(log_path: str, state: dict,
+           kind: str | None = None) -> tuple[int, dict]:
     """Scan-resume in place: returns (global_step, state); 0 and the fresh
-    state when no checkpoint exists (ref: nerf/train_nerf.py:100-114)."""
+    state when no checkpoint exists (ref: nerf/train_nerf.py:100-114).
+    ``kind`` ("nerf", "img", "sdf") lets it read a JAX run's checkpoint.
+    Under data parallelism every rank waits at a barrier first, then reads
+    the same file."""
     dev = next(next(iter(state["models"].values())).parameters()).device
+    mesh.barrier()
     found = ckpt_lib.restore_latest(log_path, map_location=dev)
     if found is None:
         return 0, state
     step, saved = found
+    saved = weights.restore_state(saved, kind)
     for k, m in state["models"].items():
         m.load_state_dict(saved["models"][k])
-    state["opt"].load_state_dict(saved["opt"])
+    load_adam(state["opt"], saved["opt"], state["models"])
     state["step"] = int(saved["step"])
     print(f"Reloading from {ckpt_lib.ckpt_path(log_path, step)}")
     return step, state
+
+
+def step_profiler(config, log_path: str, device,
+                  window=None) -> StepProfiler:
+    """The ``profile_steps`` profiler of a run, on rank 0 only.  Raises when
+    the caller's timed ``window`` context is also given: two profilers must
+    not trace the same steps."""
+    steps = int(config.get("profile_steps", 0))
+    if steps > 0 and window is not None:
+        raise ValueError("profile_steps and a timed window's context were "
+                         "both asked for; give one")
+    return StepProfiler(log_path, steps if mesh.is_main() else 0,
+                        device=device)
 
 
 def summary_module(name: str, module: torch.nn.Module) -> int:
@@ -167,6 +222,22 @@ class TimedWindow:
             self._closed.synchronize()
             return self._opened.elapsed_time(self._closed)
         return 1e3 * (self._closed - self._opened)
+
+
+def launch(argv) -> tuple[list, str | None]:
+    """A driver's argv -> (argv without ``--device D`` and ``--backend B``,
+    D or None).  Under ``torchrun`` it joins the process group first, over
+    B (``mesh.init_from_env``: NCCL with a card per rank when B is not
+    given)."""
+    argv = list(argv)
+    opts = {}
+    for flag in ("--device", "--backend"):
+        if flag in argv:
+            i = argv.index(flag)
+            opts[flag] = argv[i + 1]
+            del argv[i:i + 2]
+    mesh.init_from_env(opts.get("--backend"))
+    return argv, opts.get("--device")
 
 
 def parse_cli(argv, defaults: dict) -> Config:

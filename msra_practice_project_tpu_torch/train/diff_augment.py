@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 
 def brightness(x, b):
     """x + b per image, b ~ U(-0.5, 0.5)."""
@@ -70,9 +72,11 @@ def _uniform(n, lo, hi, generator, device):
     return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
 
 
-def draw(name: str, x, generator=None) -> tuple:
-    """The per-image draws of op ``name`` for images x."""
-    n, dev = x.shape[0], x.device
+def draw(name: str, x, generator=None, n: int | None = None) -> tuple:
+    """The per-image draws of op ``name`` for ``n`` images of x's shape
+    (x's own count by default)."""
+    n = x.shape[0] if n is None else n
+    dev = x.device
     if name == "brightness":
         return (_uniform(n, -0.5, 0.5, generator, dev),)
     if name == "saturation":
@@ -81,7 +85,7 @@ def draw(name: str, x, generator=None) -> tuple:
         return (_uniform(n, 0.5, 1.5, generator, dev),)
     if name == "color":
         return tuple(d for op in ("brightness", "saturation", "contrast")
-                     for d in draw(op, x, generator))
+                     for d in draw(op, x, generator, n))
     if name == "translation":
         sh, sw = _shift(x, 0.125)
         return (torch.randint(-sh, sh + 1, (n,), generator=generator,
@@ -114,8 +118,14 @@ def parse_policy(policy: str):
     return names
 
 
-def augment(x, policy: str, generator=None):
-    """Apply the policy's ops in order, each with fresh draws."""
+def augment(x, policy: str, generator=None, n: int | None = None):
+    """Apply the policy's ops in order, each with fresh draws.  With ``n``,
+    x holds this rank's rows of a global batch of ``n`` images: the draws
+    are made for all ``n`` and each rank keeps its rows
+    (``parallel.mesh.local_slice``), as one process would draw them."""
     for name in parse_policy(policy):
-        x = _OPS[name](x, *draw(name, x, generator))
+        d = draw(name, x, generator, n)
+        if n is not None and n != x.shape[0]:
+            d = tuple(mesh.local_slice(t) for t in d)
+        x = _OPS[name](x, *d)
     return x

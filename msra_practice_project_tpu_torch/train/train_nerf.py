@@ -14,11 +14,26 @@
     CPU use the plain models (``uses_fused_mlp``).
   * ``steps_per_call`` is read but the loop runs one step per iteration: the
     JAX trainer scans that many steps per dispatch, which is the same math.
-
-Not in this port yet: the watchdog, the step profiler, data parallelism and
-the exact-stream resume (a resumed run restarts its batch stream).
+  * Exact resume: the batch stream is a pure function of (seed, config,
+    step).  The models are drawn from a generator of their own, the first
+    shuffle and each epoch's permutation from generators seeded from (seed,
+    boundary step), each start-up batch and each step's stratified jitter
+    from generators seeded from (seed, step), and the eval image from its
+    own.  A resumed run replays the elapsed permutations and restores the
+    batch cursor, so it continues the uninterrupted run's stream.
+  * Data parallelism under ``torchrun`` (``parallel/mesh.py``): the models
+    and Adam replicate; every rank keeps the whole ray buffer (640 MB for
+    lego at 400x400; the JAX package row-shards it over its chips to save
+    HBM) and the same stream, and takes its block of each global batch and
+    of that batch's jitter, drawn whole on every rank, so the run computes
+    what one process computes.  Gradients and losses are averaged in one
+    all-reduce per step.  Rank 0 writes the logs, images and checkpoints.
+  * ``profile_steps``, ``debug_nans`` and ``watchdog_timeout``
+    (``core/diagnostics.py``).
 
 Run: python -m msra_practice_project_tpu_torch.train.train_nerf <config.json>
+     torchrun --nproc_per_node=N -m msra_practice_project_tpu_torch.train.\
+train_nerf <config.json> [--device cpu --backend gloo]
 """
 
 from __future__ import annotations
@@ -31,7 +46,7 @@ import torch
 
 from .. import resolve_device, set_plain_precision
 from ..core import ckpt as ckpt_lib
-from ..core import image_io
+from ..core import diagnostics, image_io
 from ..core.config import NERF_TRAIN_DEFAULTS, log_dir, save_config
 from ..core.logging import MetricLogger, log_print
 from ..data import blender
@@ -39,6 +54,7 @@ from ..models.nerf import nerf_model
 from ..ops import rays as ray_ops
 from ..ops.kernels.nerf_mlp import fused_nerf_apply
 from ..ops.render import render_image, render_rays
+from ..parallel import mesh
 from . import common
 
 
@@ -116,7 +132,11 @@ def make_train_step(coarse_model, fine_model, opt, cfg, device):
     which updates the models in place.  ``jitter`` ([B, n_coarse]) replaces
     the stratified draws from ``generator``.  The MLP runs through the fused
     kernels where ``uses_fused_mlp`` says so, else through the plain
-    models."""
+    models.
+
+    Under data parallelism ``batch`` is the global batch: each rank draws
+    the whole batch's jitter, keeps its block of both, and the gradients
+    and metrics are averaged over the ranks before Adam."""
     use_fine = cfg["use_fine_model"]
     use_alpha = cfg["use_alpha"]
     near, far = cfg["render_near"], cfg["render_far"]
@@ -133,15 +153,22 @@ def make_train_step(coarse_model, fine_model, opt, cfg, device):
         apply_c, apply_f = coarse_model, fine_model
     if not use_fine:
         apply_f = apply_c
+    params = [p for g in opt.opt.param_groups for p in g["params"]]
+    dp = mesh.world() > 1
 
     def step(batch, *, generator=None, jitter=None):
+        if dp:
+            if jitter is None:
+                jitter = torch.rand((batch.shape[0], nc), generator=generator,
+                                    device=batch.device)
+            batch, jitter = mesh.local_slice(batch), mesh.local_slice(jitter)
         rays_o, rays_d = batch[:, 0:3], batch[:, 3:6]
         target_rgb, target_alpha = batch[:, 6:9], batch[:, 9]
         out = render_rays(rays_o, rays_d, near, far, apply_c, apply_f, nc, nf,
                           generator=generator, jitter=jitter)
         loss_coarse = torch.mean((out["rgb_coarse"] - target_rgb) ** 2)
         loss_fine = torch.mean((out["rgb_fine"] - target_rgb) ** 2)
-        psnr = -10.0 * torch.log10(loss_fine.detach())
+        mse_fine = loss_fine.detach()
         if use_alpha:
             loss_coarse = loss_coarse + 0.1 * torch.mean(
                 (out["acc_coarse"] - target_alpha) ** 2)
@@ -150,9 +177,14 @@ def make_train_step(coarse_model, fine_model, opt, cfg, device):
         loss = loss_fine + loss_coarse if use_fine else loss_fine
         opt.zero_grad()
         loss.backward()
+        loss, loss_coarse, loss_fine = (
+            loss.detach(), loss_coarse.detach(), loss_fine.detach())
+        if dp:
+            loss, loss_coarse, loss_fine, mse_fine = mesh.all_reduce_grads(
+                params, loss, loss_coarse, loss_fine, mse_fine)
         opt.step()
-        return {"loss": loss.detach(), "loss_coarse": loss_coarse.detach(),
-                "loss_fine": loss_fine.detach(), "psnr": psnr}
+        return {"loss": loss, "loss_coarse": loss_coarse,
+                "loss_fine": loss_fine, "psnr": -10.0 * torch.log10(mse_fine)}
 
     return step
 
@@ -172,10 +204,13 @@ def load_dataset(config):
                 config["data_train_idx"],
                 rng=np.random.default_rng(config.get("seed", 0)))
     else:
-        log_print(f"[data] {data_path!r} not found - generating synthetic "
-                  "blender scene")
         tmp = os.path.join(log_dir(config), "_synthetic_data")
-        blender.make_synthetic_blender(tmp, size=config.get("data_size", 32))
+        if mesh.is_main():
+            log_print(f"[data] {data_path!r} not found - generating "
+                      "synthetic blender scene")
+            blender.make_synthetic_blender(tmp,
+                                           size=config.get("data_size", 32))
+        mesh.barrier()
         images, poses, width, height, focal, train_idx = \
             blender.load_blender_data(tmp, 1.0, 1)
     blender.premultiply_white(images)
@@ -186,6 +221,14 @@ def load_dataset(config):
     return images, poses, width, height, focal, train_idx
 
 
+def _epoch_perm(n_rays: int, seed: int, boundary: int) -> torch.Tensor:
+    """The permutation of the epoch that starts at ``boundary`` (the global
+    step after which it is drawn; 0 is the first shuffle)."""
+    gen = torch.Generator().manual_seed(common.fold_seed(seed + 1,
+                                                         boundary + 1))
+    return torch.randperm(n_rays, generator=gen)
+
+
 def train(config, device=None, timed_steps=0, window=None) -> dict:
     """Train from a resolved config; runs on CUDA unless ``device='cpu'``.
 
@@ -194,7 +237,8 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     an idle device, and closes right after the last one (before that
     iteration's print, checkpoint and image), and everything in between
     counts.  ``window``, a context manager such as a
-    ``torch.profiler.profile``, is entered for the same steps.
+    ``torch.profiler.profile``, is entered for the same steps (not with
+    ``profile_steps``: one profiler at a time).
 
     Returns the state, the metric log, the models, the image geometry and
     ``window_ms``, the window's time (None when it did not run)."""
@@ -202,35 +246,44 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     set_plain_precision()
     log_path = log_dir(config)
     os.makedirs(log_path, exist_ok=True)
+    main = mesh.is_main()
+    profiler = common.step_profiler(config, log_path, device, window)
 
     images, poses, width, height, focal, train_idx = load_dataset(config)
-    if config.get("data_show_distribution", False):
+    if config.get("data_show_distribution", False) and main:
         blender.show_data_distribution(
             poses, save_path=os.path.join(log_path, "distribution.png"))
     config["data_train_idx"] = train_idx
-    path = save_config(config, log_path)
-    log_print(f"Config file write to: {path}")
+    if main:
+        path = save_config(config, log_path)
+        log_print(f"Config file write to: {path}")
 
     seed = config.get("seed", 0)
-    host_gen = torch.Generator().manual_seed(seed)
-    dev_gen = torch.Generator(device=device).manual_seed(seed + 1)
-
-    buf = build_ray_buffer(images["train"], poses["train"], width, height,
-                           focal, host_gen, device)
+    startup = config["start_up_itrs"]
+    buf = build_ray_buffer(
+        images["train"], poses["train"], width, height, focal,
+        torch.Generator().manual_seed(common.fold_seed(seed + 1, 0)), device)
     startup_buf = (build_startup_buffer(images["train"], poses["train"],
                                         width, height, focal, device)
-                   if config["start_up_itrs"] > 0 else None)
+                   if startup > 0 else None)
     batch_size = config["batch_size"]
     n_rays = buf.shape[0]
     batch_num = int(np.ceil(n_rays / batch_size))
-    log_print(f"Batching Finished: size={tuple(buf.shape)}, "
-              f"batch_size={batch_size}, batch_num={batch_num}")
+    if main:
+        log_print(f"Batching Finished: size={tuple(buf.shape)}, "
+                  f"batch_size={batch_size}, batch_num={batch_num}")
+    if mesh.world() > 1:
+        mesh.check_divides("batch_size", batch_size)
+        if main:
+            log_print(f"[parallel] data-parallel over {mesh.world()} ranks "
+                      f"(batch {batch_size // mesh.world()} rays a rank)")
 
     # One Adam over both models, as the reference concatenates the
     # parameter lists (nerf/train_nerf.py:95-98).
-    models = {"coarse": nerf_model(config["use_siren"], generator=host_gen)}
+    init_gen = torch.Generator().manual_seed(seed)
+    models = {"coarse": nerf_model(config["use_siren"], generator=init_gen)}
     if config["use_fine_model"]:
-        models["fine"] = nerf_model(config["use_siren"], generator=host_gen)
+        models["fine"] = nerf_model(config["use_siren"], generator=init_gen)
     for m in models.values():
         m.to(device)
     coarse_model = models["coarse"]
@@ -239,7 +292,27 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     opt = common.adam(params, common.exponential_lr(
         config["learning_rate"], config["learning_rate_decay"]))
     state = common.init_state(models, opt)
-    global_step, state = common.resume(log_path, state)
+    global_step, state = common.resume(log_path, state, "nerf")
+    mesh.broadcast_state(*models.values())
+
+    # Exact resume: replay the elapsed epochs' permutations and restore the
+    # batch cursor (JAX train/train_nerf.py:287-311).  A buffer smaller than
+    # a batch (epoch_len 0) reshuffles at every step after the start-up.
+    batch_idx = 0
+    epoch_len = n_rays // batch_size
+    if global_step > startup:
+        done = global_step - startup
+        boundaries = (range(startup + epoch_len, global_step + 1, epoch_len)
+                      if epoch_len else range(startup, global_step))
+        if boundaries:
+            idx = torch.arange(n_rays)
+            for g in boundaries:
+                idx = idx[_epoch_perm(n_rays, seed, g)]
+            buf = buf[idx.to(buf.device)]
+        batch_idx = done % epoch_len if epoch_len else 0
+        if main:
+            log_print(f"[resume] replayed {len(boundaries)} epoch "
+                      f"permutations, batch cursor {batch_idx}/{epoch_len}")
 
     step_fn = make_train_step(coarse_model, fine_model, opt, config, device)
     logger = MetricLogger(["loss", "psnr"])
@@ -248,52 +321,73 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
         if os.path.exists(log_file):
             logger.preload(MetricLogger.load(log_file), global_step)
 
-    batch_idx = 0
+    host_gen = torch.Generator()
+    step_gen = torch.Generator(device=device)
     iterations = config["iterations"]
-    with common.TimedWindow(device, iterations, timed_steps,
-                            window) as timer:
+    # The step is host-paced: the hooks that are off cost no call per step.
+    profiling = profiler.steps > 0
+    with diagnostics.enable_from_config(config) as nans, \
+            diagnostics.watchdog_from_config(config, log_path) as watchdog, \
+            common.TimedWindow(device, iterations, timed_steps,
+                               window) as timer:
         while global_step < iterations:
             timer.before_step(global_step)
+            if profiling:
+                profiler.tick(global_step + 1)
+            if watchdog.enabled:
+                watchdog.beat(f"step {global_step}")
             # Epoch boundary: a real reshuffle.
-            if (global_step >= config["start_up_itrs"]
+            if (global_step >= startup
                     and (batch_idx + 1) * batch_size > n_rays):
-                perm = torch.randperm(n_rays, generator=host_gen)
+                perm = _epoch_perm(n_rays, seed, global_step)
                 buf = buf[perm.to(buf.device)]
                 batch_idx = 0
 
-            if global_step + 1 <= config["start_up_itrs"]:
+            global_step += 1
+            if global_step <= startup:
+                host_gen.manual_seed(common.fold_seed(seed + 2, global_step))
                 batch = sample_startup_batch(startup_buf, host_gen,
                                              batch_size)
             else:
                 lo = batch_idx * batch_size
                 batch = buf[lo:lo + batch_size]
                 batch_idx += 1
-            global_step += 1
             state["step"] = global_step
-            m = step_fn(batch, generator=dev_gen)
+            step_gen.manual_seed(common.fold_seed(seed + 3, global_step))
+            m = step_fn(batch, generator=step_gen)
+            if nans.enabled:
+                nans.check(global_step, loss=m["loss"])
             logger.append(loss=m["loss"], psnr=m["psnr"])
             timer.after_step(global_step)
 
-            if global_step % config["i_print"] == 0:
+            if global_step % config["i_print"] == 0 and main:
                 rate = config["i_print"] / max(logger.step_time(), 1e-9)
                 log_print(f"[Train] Iter: {global_step} "
                           f"Loss: {float(m['loss'])} PSNR: {float(m['psnr'])} "
                           f"({rate:.1f} steps/s)")
-            if global_step % config["i_save"] == 0:
+            if global_step % config["i_save"] == 0 and main:
                 # log before ckpt: resume truncates a log that ran ahead
                 logger.save(log_path)
                 p = ckpt_lib.save(log_path, global_step,
                                   common.state_dict(state))
                 log_print(f"Saved checkpoints at {p}")
             if global_step % config["i_image"] == 0:
+                # every rank renders its block of the view's tiles
+                eval_gen = torch.Generator(device=device).manual_seed(
+                    common.fold_seed(seed + 4, global_step))
                 frame = render_eval_image(config, coarse_model, fine_model,
-                                          width, height, focal, dev_gen,
+                                          width, height, focal, eval_gen,
                                           device=device)
-                image_io.imwrite(
-                    os.path.join(log_path, f"{global_step:06d}.png"), frame)
-
-    logger.save(log_path)
-    return {"state": state, "log": logger.data,
+                if main:
+                    image_io.imwrite(
+                        os.path.join(log_path, f"{global_step:06d}.png"),
+                        frame)
+        profiler.stop()
+        # the final flush waits for the device: the watchdog stays armed
+        if main:
+            logger.save(log_path)
+        log = logger.data
+    return {"state": state, "log": log,
             "models": (coarse_model, fine_model),
             "geometry": (width, height, focal), "window_ms": timer.ms()}
 
@@ -301,7 +395,8 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
 def render_eval_image(config, coarse_model, fine_model, width, height, focal,
                       generator=None, pose=None, device=None):
     """Eval render from the fixed pose (4, 0, 0) with the plain models
-    (ref: nerf/train_nerf.py:191-201)."""
+    (ref: nerf/train_nerf.py:191-201); under a process group every rank
+    calls it and renders its block of the tiles (``render_image``)."""
     if pose is None:
         pose = ray_ops.camera_pose_deg(4.0, 0.0, 0.0)
     fine = fine_model if config["use_fine_model"] else coarse_model
@@ -314,9 +409,9 @@ def render_eval_image(config, coarse_model, fine_model, width, height, focal,
 
 
 def main(argv=None):
-    config = common.parse_cli(argv if argv is not None else sys.argv[1:],
-                              NERF_TRAIN_DEFAULTS)
-    train(config)
+    argv, device = common.launch(argv if argv is not None else sys.argv[1:])
+    config = common.parse_cli(argv, NERF_TRAIN_DEFAULTS)
+    train(config, device)
 
 
 if __name__ == "__main__":

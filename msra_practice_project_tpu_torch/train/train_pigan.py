@@ -21,10 +21,23 @@
     ``d_skip_margin``, ``diff_augment``, ``g_nonsat``.
   * Randomness: every iteration reseeds one device generator from (seed,
     iteration), so a resumed run draws what the uninterrupted run drew.
-
-Not in this port yet: the watchdog, the step profiler and data parallelism.
+  * Data parallelism under ``torchrun`` (``parallel/mesh.py``): G, D and
+    both Adams replicate; every rank reads the whole real batch (the image
+    folder's order is seeded alike on every rank) and draws the whole
+    batch's z, poses, stratified jitter, instance noise and DiffAugment
+    parameters from the same generator, then keeps its block of each, so
+    the run computes what one process computes.  Each step averages its
+    gradients and metrics in one all-reduce; D's skip decision reads the
+    averaged E[D(fake)].  Every stage's batch must divide over the ranks.
+    Rank 0 writes the logs, images and checkpoints.
+  * Resumes from the port's checkpoints or a JAX run's (``core/ckpt``,
+    ``weights.train_state_from_jax``).
+  * ``profile_steps``, ``debug_nans`` and ``watchdog_timeout``
+    (``core/diagnostics.py``).
 
 Run: python -m msra_practice_project_tpu_torch.train.train_pigan <config.json>
+     torchrun --nproc_per_node=N -m msra_practice_project_tpu_torch.train.\
+train_pigan <config.json> [--device cpu --backend gloo]
 """
 
 from __future__ import annotations
@@ -36,12 +49,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import resolve_device, set_plain_precision
+from .. import resolve_device, set_plain_precision, weights
 from ..core import ckpt as ckpt_lib
+from ..core import diagnostics
 from ..core.config import PIGAN_TRAIN_DEFAULTS, log_dir, save_config
 from ..core.logging import flush_scalar_list, log_print
 from ..data.image_folder import ImageFolder, make_synthetic_faces
 from ..models import pigan
+from ..parallel import mesh
 from . import common
 
 
@@ -83,49 +98,71 @@ def make_gan_steps(g_model: pigan.Generator,
 
     Both steps take ``generator`` (a torch.Generator on the device) for the
     poses, the stratified jitter, the noise and the augmentation draws;
-    ``poses`` (theta, phi) and ``jitter`` replace the first two."""
+    ``poses`` (theta, phi) and ``jitter`` replace the first two.
+
+    ``real`` and ``z`` are the global batch: under data parallelism every
+    draw is made for the whole batch and each rank keeps its block
+    (``mesh.local_slice``), and the gradients and metrics are averaged over
+    the ranks before each Adam step."""
     use_aug = bool(diff_augment_policy)
     if use_aug:
         from . import diff_augment as da
         da.parse_policy(diff_augment_policy)  # fail fast on a bad policy
     g_params = list(g_model.parameters())
     d_params = list(d_model.parameters())
+    local = mesh.local_slice
 
-    def before_d(x, noise_std, gen):
+    def g_inputs(z, gen, poses, jitter):
+        """This rank's z, poses and jitter, the last two drawn for the
+        whole batch (in the order the generator's forward draws them)."""
+        n = z.shape[0]
+        if poses is None:
+            poses = g_model.sample_poses(n, gen, z.device)
+        if jitter is None:
+            jitter = torch.rand(
+                (n, resolution * resolution, g_model.cfg.coarse_samples),
+                generator=gen, device=z.device)
+        return local(z), tuple(local(p) for p in poses), local(jitter)
+
+    def before_d(x, noise_std, gen, n):
+        # x: this rank's rows of a global batch of n images
         if use_aug:
-            x = da.augment(x, diff_augment_policy, gen)
+            x = da.augment(x, diff_augment_policy, gen, n)
         if instance_noise:
-            x = x + noise_std * torch.randn(x.shape, generator=gen,
-                                            device=x.device)
+            x = x + noise_std * local(torch.randn(
+                (n, *x.shape[1:]), generator=gen, device=x.device))
         return x
 
-    def apply_grads(opt, params, loss):
+    def reduced_grads(params, loss, *metrics):
         # a parameter the loss does not reach (the discriminator's blocks
         # above the stage's entry) gets a zero gradient, as optax gives it
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
-        opt.step()
+        return mesh.all_reduce_grads(params, loss.detach(), *metrics)
 
     def d_step(real, z, alpha, noise_std=0.0, *, generator=None, poses=None,
                jitter=None):
+        n = z.shape[0]
+        z, poses, jitter = g_inputs(z, generator, poses, jitter)
         with torch.no_grad():
-            fake = before_d(g_model(z, resolution, generator=generator,
-                                    poses=poses, jitter=jitter),
-                            noise_std, generator)
-        real_n = before_d(real, noise_std, generator).detach()
+            fake = before_d(g_model(z, resolution, poses=poses,
+                                    jitter=jitter), noise_std, generator, n)
+        real_n = before_d(local(real), noise_std, generator, n).detach()
         real_n.requires_grad_(True)
         fake_label = d_model(fake, resolution, alpha)
         real_label = d_model(real_n, resolution, alpha)
         r1 = r1_penalty(real_label, real_n)
         loss = (-loss_f(fake_label).mean() - loss_f(-real_label).mean()
                 + r1_lambda * r1)
-        metrics = {"d_loss": loss.detach(), "r1": r1.detach(),
-                   "real_label": real_label.detach().mean(),
-                   "fake_label": fake_label.detach().mean()}
+        values = reduced_grads(d_params, loss, r1.detach(),
+                               real_label.detach().mean(),
+                               fake_label.detach().mean())
+        metrics = dict(zip(("d_loss", "r1", "real_label", "fake_label"),
+                           values))
         if d_skip_margin is None or float(metrics["fake_label"]) < \
                 d_skip_margin:
-            apply_grads(d_opt, d_params, loss)
+            d_opt.step()
             skipped = 0.0
         else:
             skipped = 1.0
@@ -135,14 +172,16 @@ def make_gan_steps(g_model: pigan.Generator,
 
     def g_step(z, alpha, noise_std=0.0, *, generator=None, poses=None,
                jitter=None):
-        fake = before_d(g_model(z, resolution, generator=generator,
-                                poses=poses, jitter=jitter),
-                        noise_std, generator)
+        n = z.shape[0]
+        z, poses, jitter = g_inputs(z, generator, poses, jitter)
+        fake = before_d(g_model(z, resolution, poses=poses, jitter=jitter),
+                        noise_std, generator, n)
         fake_label = d_model(fake, resolution, alpha)
         loss = (F.softplus(fake_label).mean() if g_nonsat
                 else loss_f(fake_label).mean())
-        apply_grads(g_opt, g_params, loss)
-        return {"g_loss": loss.detach()}
+        (g_loss,) = reduced_grads(g_params, loss)
+        g_opt.step()
+        return {"g_loss": g_loss}
 
     return d_step, g_step
 
@@ -184,7 +223,8 @@ def train(config, device=None, timed_steps=0, window=None,
     timed window: it opens at the top of the first of them, on an idle
     device, and closes right after the last one's steps (before its print,
     checkpoint and image).  ``window``, a context manager such as a
-    ``torch.profiler.profile``, is entered for the same iterations.
+    ``torch.profiler.profile``, is entered for the same iterations (not
+    with ``profile_steps``: one profiler at a time).
 
     Returns the models, the optimizers, the loss log and ``window_ms``, the
     window's time (None when it did not run)."""
@@ -192,7 +232,10 @@ def train(config, device=None, timed_steps=0, window=None,
     set_plain_precision()
     log_path = log_dir(config)
     os.makedirs(log_path, exist_ok=True)
-    save_config(config, log_path)
+    main = mesh.is_main()
+    if main:
+        save_config(config, log_path)
+    profiler = common.step_profiler(config, log_path, device, window)
 
     iterations = [0] + list(config.iterations)
     fade_in_itrs = list(config.fade_in_itrs)
@@ -215,37 +258,48 @@ def train(config, device=None, timed_steps=0, window=None,
     d_opt = common.adam(discriminator.parameters(), common.interp_lr(
         config.discriminator_lr, config.discriminator_lr_end,
         config.lr_decay), betas=(0.0, 0.9))
-    common.summary_module("generator", generator)
-    common.summary_module("discriminator", discriminator)
+    if main:
+        common.summary_module("generator", generator)
+        common.summary_module("discriminator", discriminator)
+    if mesh.world() > 1:
+        mesh.check_divides("batch_size", *batch_sizes)
+        if main:
+            log_print(f"[parallel] data-parallel over {mesh.world()} ranks")
 
     loss_log = {"g_loss": [], "d_loss": []}
+    mesh.barrier()
     found = ckpt_lib.restore_latest(log_path, map_location=device)
     if found is not None:
         global_step, saved = found
+        saved = weights.restore_state(saved, "pigan")
         generator.load_state_dict(saved["g"])
         discriminator.load_state_dict(saved["d"])
-        g_opt.load_state_dict(saved["g_opt"])
-        d_opt.load_state_dict(saved["d_opt"])
+        common.load_adam(g_opt, saved["g_opt"], {"g": generator})
+        common.load_adam(d_opt, saved["d_opt"], {"d": discriminator})
         # the loss history rides a sidecar .npy; keep global_step entries
         log_file = os.path.join(log_path, "loss_log.npy")
         if os.path.isfile(log_file):
             prev = np.load(log_file, allow_pickle=True).item()
             loss_log = {k: [float(v) for v in prev.get(k, [])][:global_step]
                         for k in loss_log}
-        log_print(f"Resumed at step {global_step} "
-                  f"({len(loss_log['g_loss'])} logged losses)")
+        if main:
+            log_print(f"Resumed at step {global_step} "
+                      f"({len(loss_log['g_loss'])} logged losses)")
     else:
         global_step = 0
+    mesh.broadcast_state(generator, discriminator)
 
     data_path = config["data_path"]
     if not os.path.isdir(data_path):
-        log_print(f"[data] {data_path!r} not found - generating synthetic "
-                  "face blobs")
         data_path = os.path.join(log_path, "_synthetic_faces")
-        if not os.path.isdir(data_path):
-            make_synthetic_faces(
-                data_path, n=config.get("data_n", 256),
-                variant=config.get("data_variant", "shaded"))
+        if main:
+            log_print(f"[data] {config['data_path']!r} not found - "
+                      "generating synthetic face blobs")
+            if not os.path.isdir(data_path):
+                make_synthetic_faces(
+                    data_path, n=config.get("data_n", 256),
+                    variant=config.get("data_variant", "shaded"))
+        mesh.barrier()
 
     r1_lambda = float(config.get("r1_lambda", 1.0))
     noise0 = float(config.get("instance_noise", 0.0))
@@ -255,8 +309,8 @@ def train(config, device=None, timed_steps=0, window=None,
     d_skip_margin = None if d_skip_margin is None else float(d_skip_margin)
     aug_policy = str(config.get("diff_augment", "") or "")
     g_nonsat = bool(config.get("g_nonsat", False))
-    if (noise0 > 0.0 or noise_floor > 0.0 or d_skip_margin is not None
-            or aug_policy or g_nonsat):
+    if main and (noise0 > 0.0 or noise_floor > 0.0
+                 or d_skip_margin is not None or aug_policy or g_nonsat):
         log_print(f"[train] instance noise {noise0} annealed over "
                   f"{noise_anneal} iters to floor {noise_floor}; "
                   f"r1_lambda {r1_lambda}; d_skip_margin {d_skip_margin}; "
@@ -276,17 +330,22 @@ def train(config, device=None, timed_steps=0, window=None,
 
     stage = stage_of(global_step, iterations)
     dataset, (d_step, g_step) = stage_setup(stage)
-    log_print(f"Starting at stage {stage}, batch_size:{batch_sizes[stage]}, "
-              f"resolution:{resolutions[stage]}")
+    if main:
+        log_print(f"Starting at stage {stage}, batch_size:"
+                  f"{batch_sizes[stage]}, resolution:{resolutions[stage]}")
 
     step_gen = torch.Generator(device=device)
     last = iterations[-1]
     window_end = last if window_end is None else window_end
     m_d = {}
-    with common.TimedWindow(device, window_end, timed_steps,
-                            window) as timer:
+    with diagnostics.enable_from_config(config) as nans, \
+            diagnostics.watchdog_from_config(config, log_path) as watchdog, \
+            common.TimedWindow(device, window_end, timed_steps,
+                               window) as timer:
         for global_step in range(global_step + 1, last + 1):
             timer.before_step(global_step - 1)
+            profiler.tick(global_step)
+            watchdog.beat(f"step {global_step}")
             epoch_idx, batch_idx, real = dataset.get()
             real = real.permute(0, 3, 1, 2).contiguous()   # NHWC -> NCHW
 
@@ -306,6 +365,8 @@ def train(config, device=None, timed_steps=0, window=None,
             z = torch.randn(batch_sizes[stage], config.z_dim,
                             generator=step_gen, device=device)
             m_g = g_step(z, fade_alpha, noise_std, generator=step_gen)
+            nans.check(global_step, d_loss=m_d["d_loss"],
+                       g_loss=m_g["g_loss"])
             loss_log["d_loss"].append(m_d["d_loss"])
             loss_log["g_loss"].append(m_g["g_loss"])
             timer.after_step(global_step)
@@ -317,11 +378,12 @@ def train(config, device=None, timed_steps=0, window=None,
                 if stage < len(resolutions):
                     dataset.close()
                     dataset, (d_step, g_step) = stage_setup(stage)
-                    log_print(f"[Train] Entering stage {stage}, batch_size:"
-                              f"{batch_sizes[stage]}, resolution:"
-                              f"{resolutions[stage]}")
+                    if main:
+                        log_print(f"[Train] Entering stage {stage}, "
+                                  f"batch_size:{batch_sizes[stage]}, "
+                                  f"resolution:{resolutions[stage]}")
 
-            if global_step % config.i_print == 0:
+            if global_step % config.i_print == 0 and main:
                 _flush(loss_log)
                 log_print(
                     f"[Train] Iter: {global_step}({epoch_idx}-{batch_idx}) "
@@ -330,7 +392,7 @@ def train(config, device=None, timed_steps=0, window=None,
                     f"{float(m_d['fake_label']):.3f}"
                     + (f" d_skipped: {m_d['d_skipped']:.0f}"
                        if "d_skipped" in m_d else ""))
-            if global_step % config.i_save == 0:
+            if global_step % config.i_save == 0 and main:
                 # the sidecar before the checkpoint: resume truncates a log
                 # that ran ahead, but could not fill one left behind
                 _flush(loss_log)
@@ -341,25 +403,27 @@ def train(config, device=None, timed_steps=0, window=None,
                     "g_opt": g_opt.state_dict(), "d_opt": d_opt.state_dict(),
                     "step": global_step})
                 log_print(f"Saved checkpoints at {p}")
-            if global_step % config.i_image == 0:
+            if global_step % config.i_image == 0 and main:
                 # after the last stage switch, render at the last resolution
                 res_now = resolutions[min(stage, len(resolutions) - 1)]
                 step_gen.manual_seed(seed * 1_000_003 + global_step + 99)
                 save_demo_grid(generator,
                                os.path.join(log_path, f"{global_step:06d}.png"),
                                resolution=res_now, generator=step_gen)
-    dataset.close()
-    _flush(loss_log)
-    np.save(os.path.join(log_path, "loss_log.npy"), loss_log)
+        profiler.stop()
+        dataset.close()
+        _flush(loss_log)
+    if main:
+        np.save(os.path.join(log_path, "loss_log.npy"), loss_log)
     return {"generator": generator, "discriminator": discriminator,
             "g_opt": g_opt, "d_opt": d_opt, "loss_log": loss_log,
             "window_ms": timer.ms()}
 
 
 def main(argv=None):
-    config = common.parse_cli(argv if argv is not None else sys.argv[1:],
-                              PIGAN_TRAIN_DEFAULTS)
-    train(config)
+    argv, device = common.launch(argv if argv is not None else sys.argv[1:])
+    config = common.parse_cli(argv, PIGAN_TRAIN_DEFAULTS)
+    train(config, device)
 
 
 if __name__ == "__main__":

@@ -23,10 +23,20 @@ double autograd, siren/train_sdf.py:73-76).
     ``final_mesh_n`` (512, ref: siren/train_sdf.py:101).
   * The MLP is plain PyTorch on either device, in strict fp32.
 
-Not in this port yet: the step profiler, NaN debugging and data
-parallelism.
+  * Data parallelism under ``torchrun`` (``parallel/mesh.py``): the model
+    and Adam replicate, every rank keeps the whole buffer (the JAX package
+    row-shards it over its chips to save HBM) and the same stream, and
+    takes its block of each global batch (and of its off-surface points, drawn whole on every rank); gradients and the loss are
+    averaged in one all-reduce per step.  The batch must divide over the
+    ranks.  Rank 0 writes the logs, meshes and checkpoints.
+  * Resumes from the port's checkpoints or a JAX run's (``core/ckpt``,
+    ``weights.train_state_from_jax``).
+  * ``profile_steps``, ``debug_nans`` and ``watchdog_timeout``
+    (``core/diagnostics.py``).
 
 Run: python -m msra_practice_project_tpu_torch.train.train_sdf <config.json>
+     torchrun --nproc_per_node=N -m msra_practice_project_tpu_torch.train.\
+train_sdf <config.json> [--device cpu --backend gloo]
 """
 
 from __future__ import annotations
@@ -41,18 +51,14 @@ from .. import resolve_device, set_plain_precision
 from ..core import ckpt as ckpt_lib
 from ..core import mesh as mesh_lib
 from ..core.config import SIREN_SDF_DEFAULTS, log_dir, save_config
-from ..core.diagnostics import watchdog_from_config
+from ..core import diagnostics
 from ..core.logging import MetricLogger, log_print
 from ..data.pointcloud import load_point_cloud, make_synthetic_sphere_cloud
 from ..models.siren_mlp import sdf_model
+from ..parallel import mesh
 from . import common
 
 LOSS_WEIGHTS = (3e3, 1e2, 5e1, 1e2)
-
-
-def fold_seed(seed: int, i: int) -> int:
-    """The seed of stream element ``i`` of the stream seeded ``seed``."""
-    return seed * 1_000_003 + i
 
 
 def sdf_loss(model, on_point, on_norm, off_point) -> torch.Tensor:
@@ -83,27 +89,33 @@ def off_surface_points(n: int, seed: int, step: int,
     """``[n, 3]`` U(-1, 1) for step ``step`` (1-based), from (seed + 1,
     step)."""
     gen = torch.Generator(device=device).manual_seed(
-        fold_seed(seed + 1, step))
+        common.fold_seed(seed + 1, step))
     return torch.rand((n, 3), generator=gen, device=device) * 2.0 - 1.0
 
 
 def shuffled(cloud: torch.Tensor, seed: int, epoch: int) -> torch.Tensor:
     """The cloud's rows permuted for ``epoch``, from (seed + 2, epoch)."""
     gen = torch.Generator(device=cloud.device).manual_seed(
-        fold_seed(seed + 2, epoch))
+        common.fold_seed(seed + 2, epoch))
     return cloud[torch.randperm(cloud.shape[0], generator=gen,
                                 device=cloud.device)]
 
 
 def make_train_step(model, opt):
     """Returns step(batch [B, 6], off_point [B, 3]) -> {"loss"}, which
-    updates the model in place."""
+    updates the model in place.  Under data parallelism both are the
+    global batch: each rank takes its block of each, and the gradients and
+    the loss are averaged over the ranks before Adam."""
+    params = list(model.parameters())
+
     def step(batch, off_point):
+        batch, off_point = mesh.local_slice(batch), mesh.local_slice(off_point)
         loss = sdf_loss(model, batch[:, :3], batch[:, 3:], off_point)
         opt.zero_grad()
         loss.backward()
+        (loss,) = mesh.all_reduce_grads(params, loss.detach())
         opt.step()
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
     return step
 
@@ -172,8 +184,10 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     set_plain_precision()
     log_path = log_dir(config)
     os.makedirs(log_path, exist_ok=True)
-    save_config(config, log_path)
-    watchdog = watchdog_from_config(config, log_path)
+    main = mesh.is_main()
+    if main:
+        save_config(config, log_path)
+    profiler = common.step_profiler(config, log_path, device, window)
 
     seed = config.get("seed", 0)
     cloud = torch.from_numpy(load_cloud(config)).to(device)
@@ -184,7 +198,12 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     model = sdf_model(config["model_type"], generator=gen).to(device)
     opt = common.adam(list(model.parameters()), config["learning_rate"])
     state = common.init_state({"model": model}, opt)
-    global_step, state = common.resume(log_path, state)
+    global_step, state = common.resume(log_path, state, "sdf")
+    mesh.broadcast_state(model)
+    if mesh.world() > 1:
+        mesh.check_divides("batch_size", batch_size)
+        if main:
+            log_print(f"[parallel] data-parallel over {mesh.world()} ranks")
     step_fn = make_train_step(model, opt)
 
     logger = MetricLogger(["loss"])
@@ -198,15 +217,19 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
     i_mesh = config.get("i_mesh", 1000)
     mesh_n = config.get("mesh_n", 128)
     iterations = config["iterations"]
-    with common.TimedWindow(device, iterations, timed_steps,
-                            window) as timer:
+    with diagnostics.enable_from_config(config) as nans, \
+            diagnostics.watchdog_from_config(config, log_path) as watchdog, \
+            common.TimedWindow(device, iterations, timed_steps,
+                               window) as timer:
         while global_step < iterations:
             timer.before_step(global_step)
+            profiler.tick(global_step + 1)
             watchdog.beat(f"step {global_step}")
             lo = batch_idx * batch_size
             m = step_fn(cloud[lo:lo + batch_size],
                         off_surface_points(batch_size, seed,
                                            global_step + 1, device))
+            nans.check(global_step + 1, loss=m["loss"])
             logger.append(loss=m["loss"])
             batch_idx += 1
             global_step += 1
@@ -217,34 +240,37 @@ def train(config, device=None, timed_steps=0, window=None) -> dict:
                 cloud = shuffled(cloud, seed, epoch_idx)
             timer.after_step(global_step)
 
-            if global_step % config["i_print"] == 0:
+            if global_step % config["i_print"] == 0 and main:
                 log_print(f"[Train] Iter: {global_step}({epoch_idx}-"
                           f"{batch_idx}) Loss: {float(m['loss'])}")
-            if global_step % i_mesh == 0:
+            if global_step % i_mesh == 0 and main:
                 create_mesh(model, os.path.join(log_path,
                                                 f"{global_step:06d}"),
                             n=mesh_n, watchdog=watchdog)
-            if global_step % config["i_save"] == 0:
+            if global_step % config["i_save"] == 0 and main:
                 # log before ckpt: resume truncates a log that ran ahead
                 logger.save(log_path)
                 p = ckpt_lib.save(log_path, global_step,
                                   common.state_dict(state))
                 log_print(f"Saved checkpoints at {p}")
 
-    logger.save(log_path)
-    # the final mesh (ref: siren/train_sdf.py:101, n 512); its slices stay
-    # under the watchdog, the host's marching pass pauses it
-    create_mesh(model, os.path.join(log_path, "test"),
-                n=config.get("final_mesh_n", 512), watchdog=watchdog)
-    watchdog.stop()
-    return {"state": state, "log": logger.data, "model": model,
+        profiler.stop()
+        log = logger.data
+        if main:
+            logger.save(log_path)
+            # the final mesh (ref: siren/train_sdf.py:101, n 512); its
+            # slices stay under the watchdog, the host's marching pass
+            # pauses it
+            create_mesh(model, os.path.join(log_path, "test"),
+                        n=config.get("final_mesh_n", 512), watchdog=watchdog)
+    return {"state": state, "log": log, "model": model,
             "window_ms": timer.ms()}
 
 
 def main(argv=None):
-    config = common.parse_cli(argv if argv is not None else sys.argv[1:],
-                              SIREN_SDF_DEFAULTS)
-    train(config)
+    argv, device = common.launch(argv if argv is not None else sys.argv[1:])
+    config = common.parse_cli(argv, SIREN_SDF_DEFAULTS)
+    train(config, device)
 
 
 if __name__ == "__main__":
