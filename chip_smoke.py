@@ -10,7 +10,10 @@ Phases; any failure exits non-zero:
      (film_mlp), of K1/K3/K6 and K2's delta chain, and in K4's bf16
      kernel (nerf_mlp: dx_tc_kernel), HGMMA on
      TF32 operands and no HMMA in K8's fp32 kernel (film_fwd_tf32_kernel),
-     and no HMMA anywhere in the NeRF library;
+     and no HMMA anywhere in the NeRF library; each FiLM kernel that takes
+     the trunk sine in both its instantiations (the polynomial and the
+     exact sine, MSRA_TPU_FAST_SIN=0), and ptxas (-v) must report no stack
+     frame and no spills for any of them;
 The split-K dW pass that K2, K5 and K7 share (csrc/tile_mm.cuh):
   1b. hold it, launched alone, against its plain version: one CTA first
      (a 64 x 256 product over 64 points against torch.mm in fp32), then
@@ -150,8 +153,11 @@ the port as plain PyTorch in strict fp32), every counter set to 0 first:
      launched;
   24. tools/torch_validate_img.py 1500 (siren > 40 dB, relu_pe > 28 dB)
      and tools/torch_validate_sdf.py 4000 (mean |r - 0.6| < 1 voxel, p95 <
-     3), in this process, with no kernel launch; then eval.test_img and
-     eval.test_sdf on their runs.  The SIREN NeRF gate
+     3), in this process, with no kernel launch; then
+     tools/torch_validate_img.py 3000 --real (the repo's copy of
+     grace_hopper.jpg, siren > 28 dB, relu_pe > 23 dB); then eval.test_img
+     and eval.test_sdf on their runs.  The SDF
+     gate's --real (4000 steps) runs by hand.  The SIREN NeRF gate
      (tools/torch_validate_nerf.py 5000 64 --siren) runs by hand: at ~115
      ms a step it would take this run past 900 s.
 Operations and scale-out (tools/torch_dp_check.py, run as a child process;
@@ -170,6 +176,25 @@ its own docstring has the details):
      a resumed 10, losses and weights equal bitwise;
   27. profile_steps' trace names K1's and K2's kernels; debug_nans is
      silent on a clean run and raises on a NaN-poisoned batch.
+The exact trunk sine (MSRA_TPU_FAST_SIN=0: torch.sin in the plain versions,
+the kernels' exact-sine instantiations on the card):
+  28. the device sines (film_sin_eval) against a double sin and cos on 2^24
+     uniform points of |v| <= 3e3 (exact: max abs error <= 1e-6) and of
+     |v| <= 1e5 (printed), the exact ones bitwise torch.sin's and
+     torch.cos's over both; then phase 10's checks with the switch at 0 at
+     phase 10's three shapes, fp32 and bf16, K7 with and without dx, with
+     phase 10's gates and bitwise repeats: the four exact instantiations
+     against their plain versions on torch.sin/torch.cos; and the exact
+     kernels' outputs differ from the polynomial ones on the same inputs;
+  29. this script with --exact-sine-path in a child process under
+     MSRA_TPU_FAST_SIN=0: train_pigan on test.json's stage 0 in mode 1 and
+     mode 2 (8 iterations each, the last 4 timed), K8 4 times and K7 once
+     per iteration, every launch an exact-sine one, finite losses; then
+     train_img (siren, batch 65,536) for 10 + 100 steps on torch.sin, no
+     kernel launched;
+  30. K8 in fp32 and bf16 and K7 with the exact sine per launch at both
+     shapes beside their plain versions and a bound that counts the exact
+     sine's SASS instructions (the polynomial rows' times are phase 15's).
 The split-K pass's launches are counted over every path: 2 per NeRF step
 (K2's), 1 per K5 chunk, 1 per K7 chunk; the delta chain's: 2 per NeRF step
 (K2's), 1 per bf16 K5 chunk.
@@ -177,6 +202,8 @@ The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
+(`--exact-sine-path` runs phase 29's child alone, under the caller's
+MSRA_TPU_FAST_SIN.)
 """
 
 from __future__ import annotations
@@ -185,6 +212,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -482,6 +510,12 @@ FILM_ODD = (3, 320)
 TC_KERNELS = ("film_bwd_delta_tc_kernel", "film_fwd_tc_kernel")
 # K8's fp32 kernel: 3xTF32 on wgmma
 TF32_KERNEL = "film_fwd_tf32_kernel"
+# K7's fp32 check mode (CUDA cores)
+F32_DELTA_KERNEL = "film_bwd_delta_kernel"
+# Every FiLM kernel that takes the trunk sine has a polynomial and an exact
+# instantiation (template argument EXACT); a mangled name with a true bool
+# template argument is the exact one, reported as "<kernel><exact>".
+EXACT_TAG, EXACT = "Lb1E", "<exact>"
 # K1's (K3's, K6's), K2's delta chain's and K4's (csrc/nerf_mlp.cu)
 NERF_TC_KERNELS = ("nerf_fwd_tc_kernel", "nerf_bwd_delta_tc_kernel",
                    "dx_tc_kernel")
@@ -1252,28 +1286,29 @@ def film_macs():
     return fwd, 2 * fwd + chain
 
 
-def film_bounds(FK, n_img, n_pts, w):
+def film_bounds(FK, n_img, n_pts, w, ops=(SINE_OPS, SINE_OPS)):
     """(K8 ms, K8 bound_by, K7 ms, K7 bound_by): the least time for the work
     of one launch, the larger of its bytes over HBM's rate, its MACs over
-    the bf16 tensor-core rate and its sines over the fp32 rate."""
+    the bf16 tensor-core rate and its sines over the fp32 rate, at `ops`
+    (sine, derivative) operations each."""
     wbytes = sum(t.numel() * t.element_size() for t in w)
     film_bytes = n_img * FK.N_FILM * 2 * FK.HID * 4
     n = n_img * n_pts
     fwd_macs, bwd_macs = film_macs()
     out = []
-    for b, macs, sines in (
-            (n * 64 + wbytes + film_bytes, fwd_macs, 2304),
+    for b, macs, sine_ops in (
+            (n * 64 + wbytes + film_bytes, fwd_macs, 2304 * ops[0]),
             (n * 64 + wbytes + 2 * film_bytes + FK.GRAD_TOTAL * 4, bwd_macs,
-             2 * 2304)):
+             2304 * (ops[0] + ops[1]))):
         t = {"bytes": b / HBM_BYTES_PER_S * 1e3,
              "operations": max(2 * macs * n / BF16_FLOP_PER_S,
-                               SINE_OPS * sines * n / FP32_FLOP_PER_S) * 1e3}
+                               sine_ops * n / FP32_FLOP_PER_S) * 1e3}
         by = max(t, key=t.get)
         out += [t[by], by]
     return out
 
 
-def film_f32_bound(FK, n_img, n_pts, w):
+def film_f32_bound(FK, n_img, n_pts, w, sin_ops=SINE_OPS):
     """(K8 fp32 bound ms, bound_by, FMA ms): the least time for one fp32 K8
     launch, the larger of its bytes over HBM's rate and its operations over
     their peak rates (3 tf32 passes of every MAC over the tf32 tensor-core
@@ -1285,14 +1320,17 @@ def film_f32_bound(FK, n_img, n_pts, w):
     t = {"bytes": (n * 64 + wbytes + n_img * FK.N_FILM * 2 * FK.HID * 4)
          / HBM_BYTES_PER_S * 1e3,
          "operations": max(3 * 2 * macs * n / TF32_FLOP_PER_S,
-                           SINE_OPS * 2304 * n / FP32_FLOP_PER_S) * 1e3}
+                           sin_ops * 2304 * n / FP32_FLOP_PER_S) * 1e3}
     by = max(t, key=t.get)
     return t[by], by, 2 * macs * n / FP32_FLOP_PER_S * 1e3
 
 
-def time_film(torch, FK, n_img, n_pts, reps, side=32):
+def time_film(torch, FK, n_img, n_pts, reps, side=32,
+              ops=(SINE_OPS, SINE_OPS)):
     """K8 and K7 (bf16, need_dx=False as the generator calls it) per launch
-    beside their plain versions (sliced over images) and their bounds."""
+    beside their plain versions (sliced over images) and their bounds, the
+    sines at `ops` (sine, derivative) operations each; the sine the
+    switch (core.nn.USE_FAST_SIN) selects."""
     x, film, w, dy = film_inputs(torch, FK, n_img, n_pts, seed=1, res=side)
     x, film, dy = x.cuda(), film.cuda(), dy.cuda()
     wk = [t.cuda() for t in FK.kernel_weights(w, True)]
@@ -1323,8 +1361,8 @@ def time_film(torch, FK, n_img, n_pts, reps, side=32):
         x, film, wf, False), reps)
     res["fwd_f32_plain_ms"] = time_ms(torch, plain_fwd_f32, 3)
     (res["fwd_f32_bound_ms"], res["fwd_f32_bound_by"],
-     res["fwd_f32_fma_ms"]) = film_f32_bound(FK, n_img, n_pts, wf)
-    b1, by1, b2, by2 = film_bounds(FK, n_img, n_pts, wk)
+     res["fwd_f32_fma_ms"]) = film_f32_bound(FK, n_img, n_pts, wf, ops[0])
+    b1, by1, b2, by2 = film_bounds(FK, n_img, n_pts, wk, ops)
     res.update(fwd_bound_ms=b1, fwd_bound_by=by1, bwd_bound_ms=b2,
                bwd_bound_by=by2)
     return res
@@ -1360,6 +1398,8 @@ def run_pigan(torch, FK, mode, overrides, timed, window_end, window=None):
             torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in FK.KERNELS}
             launches["film_mlp_fwd_f32"] = FK.film_mlp_fwd.launches_f32
+            for k in FK.KERNELS:
+                launches[k.__name__ + "_exact"] = k.launches_exact
             launches["dw_splitk"] = dw_launches()
             last = cfg["iterations"][-1]
             log = os.path.join(out_dir, "pigan_smoke")
@@ -1798,6 +1838,9 @@ SDF_MESH_N = {"siren": 512, "relu_pe": 128}
 SIREN_WIDTH = 256
 IMG_POINTS = 256 * 256      # the synthetic image's pixels: one batch
 IMG_GATE_STEPS, SDF_GATE_STEPS = 1500, 4000
+# the image gate's --real at the JAX record's recipe (tools/validate_img.py
+# 3000 --real, BASELINE.md)
+IMG_REAL_STEPS = 3000
 
 
 def all_launches(K, FK):
@@ -2052,6 +2095,13 @@ def siren_gates(torch, K, FK):
             "mean_err", "p95_err", "voxel", "radius", "verts", "faces",
             "loss_first", "loss_last50", "ms_per_step")}
         out["sdf"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        real = load_tool("torch_validate_img").main(
+            IMG_REAL_STEPS, 64, real=True,
+            out_dir=os.path.join(tmp, "img_real"))
+        out["img_real"] = {"psnr": real["psnr"], "bars": real["bars"],
+                           "ms_per_step": real["ms_per_step"],
+                           "seconds": time.perf_counter() - t0}
         torch.cuda.synchronize()
         expect_no_launches(K, FK, "the SIREN gates")
         strip = test_img.run(os.path.join(tmp, "cmp"),
@@ -2062,6 +2112,8 @@ def siren_gates(torch, K, FK):
     print(f"  gates: {json.dumps(out)}", flush=True)
     if not img["ok"]:
         raise SystemExit(f"SIREN image gate failed: {img['psnr']}")
+    if not real["ok"]:
+        raise SystemExit(f"SIREN image gate (--real) failed: {real['psnr']}")
     if not sdf["ok"]:
         raise SystemExit(f"SIREN SDF gate failed: mean {sdf['mean_err']}, "
                          f"p95 {sdf['p95_err']} (voxel {sdf['voxel']})")
@@ -2106,8 +2158,9 @@ def siren_stack(torch, K, FK):
     torch.cuda.synchronize()
     expect_no_launches(K, FK, "phases 21-23")
     phase(f"SIREN quality: torch_validate_img {IMG_GATE_STEPS}, "
-          f"torch_validate_sdf {SDF_GATE_STEPS}; then eval.test_img and "
-          "eval.test_sdf on them")
+          f"torch_validate_sdf {SDF_GATE_STEPS}, torch_validate_img "
+          f"{IMG_REAL_STEPS} --real; then eval.test_img and eval.test_sdf on "
+          "them")
     out["gates"] = siren_gates(torch, K, FK)
     return out
 
@@ -2146,16 +2199,18 @@ def sass_of(build, name, lib_path):
             timeout=300).stdout
 
 
-def sass_counts(sass, kernels):
+def sass_counts(sass, kernels, exact=False):
     """({kernel: [HGMMA, HMMA, HGMMA on TF32]} over the functions whose
-    names contain one of `kernels`, the HMMA count over every function)."""
-    import re
+    names contain one of `kernels`, the HMMA count over every function);
+    with `exact`, an exact-sine instantiation counts as kernel + EXACT."""
     counts, cur, hmma_all = {}, None, 0
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)|\.text\.([^\s,:]+)", line)
         if m:
             name = m.group(1) or m.group(2)
             cur = next((k for k in kernels if k in name), None)
+            if cur and exact and EXACT_TAG in name:
+                cur += EXACT
             if cur:
                 counts.setdefault(cur, [0, 0, 0])
             continue
@@ -2171,21 +2226,26 @@ def sass_counts(sass, kernels):
 
 def check_sass(build, libs):
     """Fails unless each bf16 per-tile kernel (TC_KERNELS of the FiLM
-    library, NERF_TC_KERNELS of the NeRF one) has HGMMA (wgmma) and no HMMA
-    (WMMA or mma.sync) in its SASS, K8's fp32 kernel (TF32_KERNEL) has
-    HGMMA, all of it on TF32 operands, and no HMMA, and the NeRF library
-    has no HMMA at all; returns {kernel: (HGMMA count, HMMA count, HGMMA
-    count on TF32)}."""
-    out, ok = {}, True
+    library, in both sine instantiations, NERF_TC_KERNELS of the NeRF one)
+    has HGMMA (wgmma) and no HMMA (WMMA or mma.sync) in its SASS, K8's fp32
+    kernel (TF32_KERNEL, both instantiations) has HGMMA, all of it on TF32
+    operands, and no HMMA, and the NeRF library has no HMMA at all.
+    Returns ({kernel: (HGMMA count, HMMA count, HGMMA count on TF32)}, the
+    SASS instructions of one trunk sine: sine_ops)."""
+    out, ok, ops = {}, True, None
     for name, kernels in (("film_mlp", TC_KERNELS + (TF32_KERNEL,)),
                           ("nerf_mlp", NERF_TC_KERNELS)):
         tool, sass = sass_of(build, name, libs[name])
-        counts, hmma_all = sass_counts(sass, kernels)
-        good = (set(counts) == set(kernels)
+        film = name == "film_mlp"
+        counts, hmma_all = sass_counts(sass, kernels, exact=film)
+        want = kernels + tuple(k + EXACT for k in kernels if film)
+        good = (set(counts) == set(want)
                 and all(g > 0 and h == 0 for g, h, _ in counts.values())
-                and all((t == g) == (k == TF32_KERNEL)
+                and all((t == g) == k.startswith(TF32_KERNEL)
                         for k, (g, _, t) in counts.items())
-                and (name == "film_mlp" or hmma_all == 0))
+                and (film or hmma_all == 0))
+        if film:
+            ops = sine_ops(sass)
         ok = ok and good
         print(f"  SASS of {name} ({tool}): " + "; ".join(
             f"{k} HGMMA {g} ({t} on TF32), HMMA {h}"
@@ -2193,8 +2253,59 @@ def check_sass(build, libs):
             + f"; HMMA in the whole library {hmma_all} -> "
             f"{'ok' if good else 'FAIL'}", flush=True)
         out.update({k: tuple(v) for k, v in counts.items()})
+    print(f"  SASS instructions of one trunk sine (sin_eval_kernel less "
+          f"its identity): {ops}", flush=True)
     if not ok:
         raise SystemExit("the per-tile kernels are not on wgmma")
+    if not (ops and all(v > 0 for v in ops.values())):
+        raise SystemExit("the sine probes are missing from the SASS")
+    return out, ops
+
+
+SINE_FNS = {1: "poly_sin", 2: "poly_cos", 3: "exact_sin", 4: "exact_cos"}
+
+
+def sine_ops(sass):
+    """{poly_sin, poly_cos, exact_sin, exact_cos: SASS instructions} of one
+    trunk sine or derivative: the instructions (NOPs not counted) of
+    csrc/film_mlp.cu's sin_eval_kernel<FN> less those of its identity
+    instantiation FN 0 (the probe's own loads, stores and index)."""
+    count, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)|\.text\.([^\s,:]+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            fn = re.search(r"sin_eval_kernelILi(\d)E", name)
+            cur = int(fn.group(1)) if fn else None
+            if cur is not None:
+                count[cur] = 0
+            continue
+        if cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+(?!NOP)\S",
+                                         line):
+            count[cur] += 1
+    if set(count) != {0, *SINE_FNS}:
+        return None
+    return {v: count[k] - count[0] for k, v in SINE_FNS.items()}
+
+
+def check_ptxas(build):
+    """ptxas' resource usage (-v) of every instantiation of the FiLM kernels
+    that take the trunk sine: {kernel (+ EXACT): {registers, stack_frame,
+    spill_stores, spill_loads}}; fails unless each has no stack frame and
+    no spills and both instantiations of each are there."""
+    kernels = TC_KERNELS + (TF32_KERNEL, F32_DELTA_KERNEL)
+    out = {}
+    for mangled, use in build.ptxas_usage("film_mlp").items():
+        k = next((k for k in kernels if re.search(rf"\d{k}I", mangled)), None)
+        if k:
+            out[k + (EXACT if EXACT_TAG in mangled else "")] = use
+    for k, use in out.items():
+        print(f"  ptxas: {k} {use}", flush=True)
+    if set(out) != {k + e for k in kernels for e in ("", EXACT)} or any(
+            use.get("stack_frame", 1) or use.get("spill_stores", 1)
+            or use.get("spill_loads", 1) for use in out.values()):
+        raise SystemExit("a FiLM kernel has a stack frame or spills, or an "
+                         "instantiation is missing")
     return out
 
 
@@ -2214,6 +2325,185 @@ def odd_shape_layout(FK, n_img, n_pts):
                          "CTA across images")
 
 
+# Slice 15: the exact trunk sine (MSRA_TPU_FAST_SIN=0).  The device sines
+# are held to a double sin/cos over |v| <= 3e3 (the trunk's 30 (g u + be)
+# stays in the hundreds) and read over |v| <= 1e5.
+SINE_RANGES = (3e3, 1e5)
+SINE_POINTS = 1 << 24
+SINE_GATE = 1e-6
+EXACT_CHILD_FLAG = "--exact-sine-path"
+EXACT_ITERATIONS, EXACT_TIMED = 8, 4   # phase 29's pi-GAN runs, as phase 13
+
+
+@contextlib.contextmanager
+def trunk_sine(fast):
+    """core.nn.USE_FAST_SIN (the switch the wrappers and the plain versions
+    read at each call) set to `fast` for the block."""
+    from msra_practice_project_tpu_torch.core import nn
+    old, nn.USE_FAST_SIN = nn.USE_FAST_SIN, fast
+    try:
+        yield
+    finally:
+        nn.USE_FAST_SIN = old
+
+
+def check_device_sines(torch, FK):
+    """Phase 28's first check: max |device sine - double sin| (and cos for
+    the derivative) on SINE_POINTS uniform points of each |v| <= SINE_RANGES,
+    the exact and the polynomial ones, and the exact ones' values that are
+    not bitwise torch.sin's / torch.cos's (CUDA's sinf/cosf); fails unless
+    the exact sine and cosine are within SINE_GATE of the double ones over
+    the first range and bitwise torch's over both (|v| < 105,615, sinf's
+    fast path, which they follow)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for lim in SINE_RANGES:
+        v = (torch.rand(SINE_POINTS, device="cuda", generator=g) * 2 - 1) * lim
+        vd = v.double()
+        for fast in (False, True):
+            for vjp in (False, True):
+                got = FK.sin_eval(v, fast, vjp)
+                ref = vd.cos() if vjp else vd.sin()
+                key = (f"{'poly' if fast else 'exact'}_"
+                       f"{'cos' if vjp else 'sin'}_{lim:g}")
+                out[key] = float((got.double() - ref).abs().max())
+                if not fast:
+                    torch_ref = torch.cos(v) if vjp else torch.sin(v)
+                    out[key + "_not_bitwise_torch"] = int(
+                        (got.view(torch.int32)
+                         != torch_ref.view(torch.int32)).sum())
+        del v, vd
+    print(f"  max |device - double| on {SINE_POINTS:,} points, and the "
+          f"exact values not bitwise torch's: {json.dumps(out)}", flush=True)
+    lim = f"{SINE_RANGES[0]:g}"
+    if not (out[f"exact_sin_{lim}"] <= SINE_GATE
+            and out[f"exact_cos_{lim}"] <= SINE_GATE
+            and not any(v for k, v in out.items()
+                        if k.endswith("_not_bitwise_torch"))):
+        raise SystemExit(f"the exact sine is off by more than {SINE_GATE} "
+                         "or not bitwise torch.sin's")
+    return out
+
+
+def check_film_exact(torch, FK, n_img, n_pts):
+    """Phase 28 at one shape: check_film with the switch at 0 (the exact
+    instantiations against the plain versions on torch.sin/torch.cos, phase
+    10's gates, bitwise repeats); then, on the same inputs, K8 in fp32 and
+    bf16 and K7's dfilm from the exact and the polynomial instantiations
+    must differ, each call counted as exact or not.  Returns check_film's
+    report."""
+    with trunk_sine(False):
+        report = check_film(torch, FK, n_img, n_pts)
+    x, film, w, dy = film_inputs(torch, FK, n_img, n_pts)
+    x, film, dy = x.cuda(), film.cuda(), dy.cuda()
+    before = (FK.film_mlp_fwd.launches_exact, FK.film_mlp_bwd.launches_exact)
+    diff = {}
+    for bf16 in (False, True):
+        wk = [t.cuda() for t in FK.kernel_weights(w, bf16)]
+        a, b = (FK.film_mlp_fwd(x, film, wk, bf16, fast_sin=f)
+                for f in (False, True))
+        diff[f"K8 {'bf16' if bf16 else 'fp32'}"] = float((a - b).abs().max())
+    a, b = (FK.film_mlp_bwd(x, film, dy, wk, True, False, fast_sin=f)[1]
+            for f in (False, True))
+    diff["K7 dfilm"] = float((a - b).abs().max())
+    torch.cuda.synchronize()
+    counted = (FK.film_mlp_fwd.launches_exact - before[0],
+               FK.film_mlp_bwd.launches_exact - before[1])
+    print(f"  exact vs polynomial kernels, max |diff|: {diff}; exact "
+          f"launches counted (K8, K7) {counted}", flush=True)
+    if not (all(d > 0 for d in diff.values()) and counted == (2, 1)):
+        raise SystemExit("the exact-sine kernels did not run")
+    return report
+
+
+def exact_sine_path():
+    """Phase 29: this script with EXACT_CHILD_FLAG in a child process under
+    MSRA_TPU_FAST_SIN=0 (the switch read where the package is imported, as
+    a user sets it); its output is shown and its last line, a JSON summary,
+    returned.  Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), EXACT_CHILD_FLAG],
+        cwd=ROOT, env=dict(os.environ, MSRA_TPU_FAST_SIN="0"),
+        capture_output=True, text=True, timeout=600)
+    print(res.stdout, end="", flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-6000:], file=sys.stderr, flush=True)
+        raise SystemExit(f"the exact-sine child exited {res.returncode}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 29: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def exact_sine_child(torch, K, FK):
+    """Phase 29's body (EXACT_CHILD_FLAG, MSRA_TPU_FAST_SIN=0 set by the
+    caller): pi-GAN modes 1 and 2 at test.json's stage 0 through the
+    exact-sine kernels only, then the SIREN image step on torch.sin with no
+    kernel launched.  Prints a JSON summary as its last line."""
+    from msra_practice_project_tpu_torch.core import nn
+    from msra_practice_project_tpu_torch.core.config import SIREN_IMG_DEFAULTS
+    from msra_practice_project_tpu_torch.train import train_img
+    if nn.USE_FAST_SIN:
+        raise SystemExit("MSRA_TPU_FAST_SIN=0 did not reach core.nn")
+    out = {}
+    for mode, f32 in ((1, 4.0), (2, 0.0)):
+        phase(f"exact sine: pi-GAN mode {mode}, test.json stage 0, "
+              f"{EXACT_ITERATIONS} iterations (the last {EXACT_TIMED} timed)")
+        ms, launches, _, _ = pigan_path(
+            torch, FK, mode, dict(iterations=[EXACT_ITERATIONS],
+                                  fade_in_itrs=[0], batch_size=[64],
+                                  resolution=[32], i_print=4, i_save=1000,
+                                  i_image=1000),
+            EXACT_TIMED, EXACT_ITERATIONS,
+            {"film_mlp_fwd": 4.0, "film_mlp_fwd_f32": f32,
+             "film_mlp_bwd": 1.0, "film_mlp_fwd_exact": 4.0,
+             "film_mlp_bwd_exact": 1.0})
+        out[f"pigan_mode{mode}"] = {"ms_per_iteration": ms,
+                                    "launches": launches}
+        torch.cuda.synchronize()
+    steps = IMG_WARM + IMG_TIMED
+    phase(f"exact sine: train_img, siren_img.json's recipe, {IMG_WARM} + "
+          f"{IMG_TIMED} steps (torch.sin, no kernel)")
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exact_") as tmp:
+        cfg = siren_cfg("siren_img.json", SIREN_IMG_DEFAULTS, tmp,
+                        experiment_name="img_exact", iterations=steps,
+                        i_print=steps, i_save=steps, i_image=steps)
+        res, ms, peak = run_siren(torch, train_img, cfg, IMG_TIMED)
+    loss = res["log"]["loss"]
+    print(f"  siren: {ms:.3f} ms/step, peak {peak:.3f} GiB; loss "
+          f"{loss[0]:.5f} -> {loss[-1]:.5f}", flush=True)
+    expect_no_launches(K, FK, "the exact-sine SIREN image fit")
+    if not (len(loss) == steps and finite(loss) and loss[-1] < loss[0]):
+        raise SystemExit("the exact-sine SIREN image fit failed")
+    out["siren_img"] = {"ms_per_step": ms, "peak_gib": peak,
+                        "loss_first": loss[0], "loss_last": loss[-1]}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def time_film_exact(torch, FK, ops):
+    """Phase 30: time_film with the switch at 0 at both shapes, the bounds
+    counting `ops` = (exact sine, cosine) SASS instructions."""
+    out = {}
+    with trunk_sine(False):
+        for label, n_pts in (("coarse", FILM_COARSE_P), ("fine", FILM_FINE_P)):
+            out[label] = t = time_film(torch, FK, FILM_B, n_pts, 10, ops=ops)
+            print(f"  {label} B={FILM_B} P={n_pts}, exact sine: K8 fp32 "
+                  f"{t['fwd_f32_ms']:.4f} ms (plain "
+                  f"{t['fwd_f32_plain_ms']:.4f}, bound "
+                  f"{t['fwd_f32_bound_ms']:.4f} "
+                  f"{t['fwd_f32_bound_by']}); K8 bf16 {t['fwd_ms']:.4f} ms "
+                  f"(plain {t['fwd_plain_ms']:.4f}, bound "
+                  f"{t['fwd_bound_ms']:.4f} {t['fwd_bound_by']}); K7 "
+                  f"{t['bwd_ms']:.4f} ms (plain {t['bwd_plain_ms']:.4f}, "
+                  f"bound {t['bwd_bound_ms']:.4f} {t['bwd_bound_by']})",
+                  flush=True)
+            torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2230,6 +2520,8 @@ def main() -> int:
         return 2
     from msra_practice_project_tpu_torch import set_plain_precision
     set_plain_precision()
+    if sys.argv[1:] == [EXACT_CHILD_FLAG]:
+        return exact_sine_child(torch, K, FK)
 
     phase("device and build")
     smi = nvidia_smi_line()
@@ -2240,10 +2532,11 @@ def main() -> int:
     libs = build.load_all(["nerf_mlp", "film_mlp"])
     print(f"  built {', '.join(os.path.basename(l._name) for l in libs)} "
           f"({time.perf_counter() - t0:.1f} s, in parallel)", flush=True)
-    sass = check_sass(build, {"nerf_mlp": libs[0]._name,
-                              "film_mlp": libs[1]._name})
+    sass, sin_ops = check_sass(build, {"nerf_mlp": libs[0]._name,
+                                       "film_mlp": libs[1]._name})
+    ptxas = check_ptxas(build)
     torch.cuda.synchronize()
-    summary, kernels = {}, []
+    summary, kernels = {"ptxas_film": ptxas, "sine_sass_ops": sin_ops}, []
 
     phase("split-K dW pass (tile_mm.cuh) vs its plain version: one CTA, "
           "then K2's and K7's task tables")
@@ -2383,7 +2676,8 @@ def main() -> int:
         torch, FK, 1, dict(iterations=[20, 30], fade_in_itrs=[0, 5],
                            i_print=10, i_save=30, i_image=30),
         10, 20, {"film_mlp_fwd": 4.0, "film_mlp_fwd_f32": 4.0,
-                 "film_mlp_bwd": 1.0}, files=True)
+                 "film_mlp_bwd": 1.0, "film_mlp_fwd_exact": 0.0,
+                 "film_mlp_bwd_exact": 0.0}, files=True)
     torch.cuda.synchronize()
     phase("pi-GAN mode 2 (K8 forward in bf16): stage 0, 8 iterations")
     ms2, launches2, _, _ = pigan_path(
@@ -2391,7 +2685,8 @@ def main() -> int:
                            batch_size=[64], resolution=[32], i_print=4,
                            i_save=1000, i_image=1000),
         4, 8, {"film_mlp_fwd": 4.0, "film_mlp_fwd_f32": 0.0,
-               "film_mlp_bwd": 1.0})
+               "film_mlp_bwd": 1.0, "film_mlp_fwd_exact": 0.0,
+               "film_mlp_bwd_exact": 0.0})
     torch.cuda.synchronize()
     print(f"  ms/iteration at stage 0: mode 1 {ms1:.3f}, mode 2 "
           f"{ms2:.3f}", flush=True)
@@ -2516,6 +2811,53 @@ def main() -> int:
           "group), exact resume, profile_steps and debug_nans: "
           "tools/torch_dp_check.py (phases 25-27)")
     summary["operations"] = dp_check()
+
+    exact_errs, exact = {}, {}
+    phase(f"exact sine: the device sines vs a double sin/cos (|v| <= "
+          f"{SINE_RANGES[0]:g}: gate {SINE_GATE:g})")
+    exact["device_sines"] = check_device_sines(torch, FK)
+    for n_img, n_pts in ((FILM_B, FILM_COARSE_P), (FILM_B, FILM_FINE_P),
+                         FILM_ODD):
+        phase(f"exact sine: K7/K8 vs plain versions at B={n_img}, "
+              f"P={n_pts} (MSRA_TPU_FAST_SIN=0)")
+        for name, err in check_film_exact(torch, FK, n_img, n_pts).items():
+            exact_errs[name] = max(err, exact_errs.get(name, 0.0))
+        torch.cuda.synchronize()
+    phase("exact sine: pi-GAN modes 1 and 2 and the SIREN image step in a "
+          "child process under MSRA_TPU_FAST_SIN=0")
+    exact["path"] = path = exact_sine_path()
+    phase("exact sine: K7/K8 timings (CUDA events, median)")
+    print(f"  {nvidia_smi_line()}", flush=True)
+    ops = (sin_ops["exact_sin"], sin_ops["exact_cos"])
+    etimes = time_film_exact(torch, FK, ops)
+    exact["times"] = etimes
+    summary["exact_sine"] = exact
+    m1, m2 = path["pigan_mode1"]["launches"], path["pigan_mode2"]["launches"]
+    pallas = "msra_practice_project_tpu/ops/pallas/film_mlp.py"
+    for name, pre, tc, mode, by_path in (
+            ("film_mlp_fwd_f32_exact", "fwd_f32", TF32_KERNEL, 1,
+             {"pigan_mode1_exact": m1["film_mlp_fwd_exact"]}),
+            ("film_mlp_fwd_exact", "fwd", TC_KERNELS[1], 2,
+             {"pigan_mode2_exact": m2["film_mlp_fwd_exact"]}),
+            ("film_mlp_bwd_exact", "bwd", TC_KERNELS[0], 1,
+             {"pigan_mode1_exact": m1["film_mlp_bwd_exact"],
+              "pigan_mode2_exact": m2["film_mlp_bwd_exact"]})):
+        entry = kernel_entry(
+            name, "msra_practice_project_tpu_torch/ops/kernels/csrc/"
+            "film_mlp.cu", f"{pallas}:{206 if pre == 'bwd' else 160}",
+            by_path[f"pigan_mode{mode}_exact"],
+            exact_errs[name.removesuffix("_exact")],
+            by_kernel(etimes["coarse"], pre), by_kernel(etimes["fine"], pre),
+            f"B={FILM_B} P={FILM_COARSE_P} (coarse pass)",
+            f"B={FILM_B} P={FILM_FINE_P}",
+            f"train_pigan, test.json, MSRA_TPU_FAST_SIN=0, mode {mode}")
+        g, h, t = sass[tc + EXACT]
+        entry.update(kernel=tc + "<true>", launches_by_path=by_path,
+                     sine_sass_ops=dict(zip(("sin", "cos"), ops)),
+                     sass={tc + EXACT: {"HGMMA": g, "HMMA": h,
+                                        "HGMMA_TF32": t}},
+                     ptxas=ptxas[tc + EXACT])
+        kernels.append(entry)
 
     print(json.dumps(summary))
     print(smi)

@@ -1,19 +1,20 @@
 """Neural-net primitives (port of ``msra_practice_project_tpu/core/nn.py``):
 Xavier-uniform dense init with the reference's activation gains, the
-torch-default, SIREN and FiLM-SIREN inits, the polynomial trunk sine with its
+torch-default, SIREN and FiLM-SIREN inits, the trunk sine with its
 derivative, the SIREN and FiLM-SIREN layers, and the positional encoding with
 its interleaved ``[sin_i(3), cos_i(3)]`` layout.
 
 Weights follow ``torch.nn.Linear``: ``[out, in]``.  Every init draws from an
 explicit ``torch.Generator`` (weight first, then bias).
 
-The trunk sine is always the polynomial: the JAX package's
-``MSRA_TPU_FAST_SIN=0`` switch (``jnp.sin``) is not ported.
+The trunk sine is the polynomial ``fast_sin`` unless ``MSRA_TPU_FAST_SIN=0``
+(read at import, as the JAX package reads it), which makes it ``torch.sin``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 from torch import nn
@@ -117,14 +118,20 @@ def _uniform_linear(in_dim, out_dim, w_bound, b_bound, generator, device):
 
 
 # ---------------------------------------------------------------------------
-# The trunk sine: a degree-7 odd minimax polynomial with exact fp32 range
-# reduction (max abs error 1.8e-6 over [-30, 30]).  The FiLM kernels
-# (ops/kernels/csrc/film_mlp.cu) compute the same steps with the same
-# roundings.  Positional encodings keep the exact torch.sin.
+# The trunk sine: by default a degree-7 odd minimax polynomial with exact
+# fp32 range reduction (max abs error 1.8e-6 over [-30, 30]).  The FiLM
+# kernels (ops/kernels/csrc/film_mlp.cu) compute the same steps with the
+# same roundings, and have exact-sine variants for MSRA_TPU_FAST_SIN=0.
+# Positional encodings keep the exact torch.sin either way.
 # ---------------------------------------------------------------------------
 
 _TWO_PI = 6.283185307179586
 _SIN_POLY = (0.99999660, -0.16664824, 0.00830629, -0.00018363)
+
+# MSRA_TPU_FAST_SIN=0 makes the trunk sine torch.sin (the JAX package's
+# kill switch).  Read at call time by trunk_sin, trunk_sin_vjp and the FiLM
+# kernels' wrappers, so tests may flip it.
+USE_FAST_SIN = os.environ.get("MSRA_TPU_FAST_SIN", "1") != "0"
 
 
 def _sin_reduce(v):
@@ -147,14 +154,22 @@ def fast_sin(v: torch.Tensor) -> torch.Tensor:
     return r * (c1 + r2 * (c3 + r2 * (c5 + r2 * c7)))
 
 
-def trunk_sin(v: torch.Tensor) -> torch.Tensor:
-    """The sine of the SIREN/FiLM activation trunks."""
-    return fast_sin(v)
+def trunk_sin(v: torch.Tensor, fast: bool | None = None) -> torch.Tensor:
+    """The sine of the SIREN/FiLM activation trunks: ``fast_sin`` or, with
+    ``fast`` False, ``torch.sin``; ``fast`` None reads ``USE_FAST_SIN``."""
+    if fast is None:
+        fast = USE_FAST_SIN
+    return fast_sin(v) if fast else torch.sin(v)
 
 
-def trunk_sin_vjp(v: torch.Tensor) -> torch.Tensor:
+def trunk_sin_vjp(v: torch.Tensor, fast: bool | None = None) -> torch.Tensor:
     """d trunk_sin(v) / dv, consistent with autograd of ``trunk_sin``: the
-    polynomial's derivative, its sign flipped on the reflected branches."""
+    polynomial's derivative, its sign flipped on the reflected branches, or
+    ``torch.cos`` for the exact sine."""
+    if fast is None:
+        fast = USE_FAST_SIN
+    if not fast:
+        return torch.cos(v)
     r, flip = _sin_reduce(v)
     r2 = r * r
     c1, c3, c5, c7 = _SIN_POLY

@@ -3,13 +3,18 @@
 clouds are bitwise the JAX package's).
 
 The reference loads a .mat file with an N x 6 array 'p' of (position, normal)
-rows (siren/train_sdf.py:32).  We accept .mat, .npy or .npz.  matplotlib
-(the DEM) and scipy are imported where they are used.
+rows (siren/train_sdf.py:32).  We accept .mat, .npy or .npz.  The DEM is the
+port's copy of matplotlib's sample file (data/sample_data/); scipy is
+imported where it is used.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from . import SAMPLE_DATA
 
 
 def load_point_cloud(path: str, key: str = "p") -> np.ndarray:
@@ -37,8 +42,9 @@ def make_synthetic_sphere_cloud(n: int = 20000, radius: float = 0.6,
 
 
 def load_dem_heightfield(extent: float = 0.7, z_scale: float = 0.2):
-    """Real-terrain heightfield from matplotlib's bundled Jacksboro Fault
-    DEM (USGS elevation data shipped offline with matplotlib).
+    """Real-terrain heightfield from the Jacksboro Fault DEM (USGS
+    elevation data; the port's copy of matplotlib's sample file, in
+    data/sample_data/: a missing file raises).
 
     Returns (height [H, W], x_lin [W], y_lin [H]): the elevation grid
     normalised so x/y span [-extent, extent] and z spans 2*z_scale centred
@@ -46,9 +52,7 @@ def load_dem_heightfield(extent: float = 0.7, z_scale: float = 0.2):
     oriented-point-cloud contract as the reference's .mat scenes,
     siren/train_sdf.py:32).
     """
-    import matplotlib.cbook as cbook
-
-    path = cbook.get_sample_data("jacksboro_fault_dem.npz", asfileobj=False)
+    path = os.path.join(SAMPLE_DATA, "jacksboro_fault_dem.npz")
     with np.load(path) as d:
         elev = np.asarray(d["elevation"], dtype=np.float32)
     h, w = elev.shape

@@ -14,6 +14,11 @@ sums stay fp32.  With ``bf16=False`` everything is fp32.  A wrapper takes the
 plain version only for tensors on the CPU; a CUDA tensor launches the kernel
 or raises.
 
+The trunk sine follows ``core.nn.USE_FAST_SIN`` (``MSRA_TPU_FAST_SIN``), read
+at each call unless ``fast_sin`` is given: the polynomial by default, else
+the exact sine (``torch.sin`` in the plain versions, the kernels' exact-sine
+instantiations on the card, counted in ``launches_exact``).
+
 Shapes (points per image padded to a multiple of ``PT_MULT``, zero rows):
   x ``[B, P, 8]`` = pos(3), dir(3), pad(2);  film ``[B, 9, 512]`` =
   gamma(256) || beta(256) per FiLM layer;  out and dy ``[B, P, 8]`` =
@@ -28,6 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...core import nn as core_nn
 from ...core.nn import trunk_sin, trunk_sin_vjp
 from . import dw_splitk as DW
 
@@ -246,7 +252,12 @@ def _gamma_beta(film, layer):
     return row[..., :HID], row[..., HID:]
 
 
-def _forward(x, film, w, bf16, store_bf16=False):
+def _fast(fast_sin):
+    """The sine a call takes: ``fast_sin``, or ``USE_FAST_SIN`` when None."""
+    return core_nn.USE_FAST_SIN if fast_sin is None else bool(fast_sin)
+
+
+def _forward(x, film, w, bf16, store_bf16=False, fast=None):
     """The trunk on x [B, P, 8]: (u_l, h_l for l = 0..8, sigma, rgb), u_l
     and h_l rounded to bf16 when ``store_bf16`` (``_forward_tile``)."""
     st = (lambda a: _round(a, store_bf16))
@@ -255,13 +266,13 @@ def _forward(x, film, w, bf16, store_bf16=False):
     for l in range(8):
         u = _mm(h, w[f"W{l}"], bf16) + w[f"b{l}"]
         g, be = _gamma_beta(film, l)
-        h = trunk_sin(W0_CONST * (g * u + be))
+        h = trunk_sin(W0_CONST * (g * u + be), fast)
         us.append(st(u))
         hs.append(st(h))
     sig = torch.relu(_mm(h, w["Ws"], bf16) + w["bs"])
     u8 = _mm(h, w["W8a"], bf16) + _mm(x, w["W8b"], bf16) + w["b8"]
     g, be = _gamma_beta(film, 8)
-    h8 = trunk_sin(W0_CONST * (g * u8 + be))
+    h8 = trunk_sin(W0_CONST * (g * u8 + be), fast)
     rgb = torch.sigmoid(_mm(h8, w["Wr"], bf16) + w["br"])
     us.append(st(u8))
     hs.append(st(h8))
@@ -269,21 +280,25 @@ def _forward(x, film, w, bf16, store_bf16=False):
 
 
 def film_mlp_fwd_plain(x: torch.Tensor, film: torch.Tensor, w,
-                       bf16: bool) -> torch.Tensor:
+                       bf16: bool, fast_sin: bool | None = None
+                       ) -> torch.Tensor:
     """Plain version of K8: out ``[B, P, 8]`` = rgb(3), sigma, zeros."""
     w = dict(zip(PACK_KEYS, (t.float() for t in w)))
-    _, _, sig, rgb = _forward(x.float(), film.float(), w, bf16)
+    _, _, sig, rgb = _forward(x.float(), film.float(), w, bf16,
+                              fast=fast_sin)
     return torch.cat([rgb[..., :3], sig[..., :1],
                       rgb.new_zeros(*rgb.shape[:-1], OUT_PAD - 4)], dim=-1)
 
 
 def film_mlp_bwd_plain(x: torch.Tensor, film: torch.Tensor, dy: torch.Tensor,
-                       w, bf16: bool, need_dx: bool = True):
+                       w, bf16: bool, need_dx: bool = True,
+                       fast_sin: bool | None = None):
     """Plain version of K7: (dx ``[B, P, 8]`` or None, dfilm ``[B, 9, 512]``,
     the 23 packed gradients in ``PACK_KEYS`` order), fp32."""
     w = dict(zip(PACK_KEYS, (t.float() for t in w)))
     x, film, dy = x.float(), film.float(), dy.float()
-    us, hs, sig, rgb = _forward(x, film, w, bf16, store_bf16=bf16)
+    fast = _fast(fast_sin)  # read once: the forward and the chain agree
+    us, hs, sig, rgb = _forward(x, film, w, bf16, store_bf16=bf16, fast=fast)
     g = {}
     dfilm = [None] * N_FILM
 
@@ -302,7 +317,7 @@ def film_mlp_bwd_plain(x: torch.Tensor, film: torch.Tensor, dy: torch.Tensor,
         dv) per image, with the stored (rounded) u."""
         u = us[l]
         gm, be = _gamma_beta(film, l)
-        dv = dh * W0_CONST * trunk_sin_vjp(W0_CONST * (gm * u + be))
+        dv = dh * W0_CONST * trunk_sin_vjp(W0_CONST * (gm * u + be), fast)
         dfilm[l] = torch.cat([(dv * u).sum(dim=1), dv.sum(dim=1)], dim=-1)
         return dv * gm
 
@@ -339,12 +354,14 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.film_mlp_fwd.argtypes = [p, p, ctypes.POINTER(p), p, p, i, i, i,
-                                     p]
+                                     i, p]
         lib.film_mlp_fwd.restype = i
         lib.film_mlp_bwd.argtypes = [
             p, p, p, ctypes.POINTER(p), p, p, i, i, i, p, p, p, p, p, p, i,
-            ctypes.POINTER(ctypes.c_int), i, p, i, p, p, i, p]
+            ctypes.POINTER(ctypes.c_int), i, p, i, p, p, i, i, p]
         lib.film_mlp_bwd.restype = i
+        lib.film_sin_eval.argtypes = [p, p, i, i, p]
+        lib.film_sin_eval.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -386,13 +403,16 @@ def _stream(device):
 
 
 def film_mlp_fwd(x: torch.Tensor, film: torch.Tensor, w,
-                 bf16: bool = True) -> torch.Tensor:
+                 bf16: bool = True, fast_sin: bool | None = None
+                 ) -> torch.Tensor:
     """K8: out ``[B, P, 8]`` fp32.  CPU tensors take the plain version; CUDA
     tensors launch ``csrc/film_mlp.cu``: ``film_fwd_tc_kernel`` in bf16,
     ``film_fwd_tf32_kernel`` (3xTF32) in fp32, counted in ``launches`` and,
-    in fp32, also in ``launches_f32``."""
+    in fp32, also in ``launches_f32``; the exact-sine instantiation also in
+    ``launches_exact``."""
+    fast = _fast(fast_sin)
     if x.device.type == "cpu":
-        return film_mlp_fwd_plain(x, film, w, bf16)
+        return film_mlp_fwd_plain(x, film, w, bf16, fast)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n_img, n_pts, wp = _check_inputs(x, film, w, bf16)
@@ -402,15 +422,18 @@ def film_mlp_fwd(x: torch.Tensor, film: torch.Tensor, w,
     with torch.cuda.device(x.device):
         err = _lib().film_mlp_fwd(x.data_ptr(), film.data_ptr(), wp,
                                   stack.data_ptr(), out.data_ptr(), n_img,
-                                  n_pts, int(bf16), _stream(x.device))
+                                  n_pts, int(bf16), int(not fast),
+                                  _stream(x.device))
     if err:
         raise RuntimeError(f"film_mlp_fwd launch failed: CUDA error {err}")
     film_mlp_fwd.launches += 1
     film_mlp_fwd.launches_f32 += not bf16
+    film_mlp_fwd.launches_exact += not fast
     return out
 
 
 film_mlp_fwd.launches = film_mlp_fwd.launches_f32 = 0
+film_mlp_fwd.launches_exact = 0
 
 
 def grad_tasks() -> list:
@@ -446,13 +469,16 @@ def chunk_images(n_img: int, n_pts: int, bf16: bool) -> int:
 
 
 def film_mlp_bwd(x: torch.Tensor, film: torch.Tensor, dy: torch.Tensor, w,
-                 bf16: bool = True, need_dx: bool = True):
+                 bf16: bool = True, need_dx: bool = True,
+                 fast_sin: bool | None = None):
     """K7: (dx ``[B, P, 8]`` or None, dfilm ``[B, 9, 512]``, the 23 packed
     gradients in ``PACK_KEYS`` order), fp32.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/film_mlp.cu`` (bitwise
-    reproducible)."""
+    reproducible), counted in ``launches`` and, with the exact sine, in
+    ``launches_exact``."""
+    fast = _fast(fast_sin)
     if x.device.type == "cpu":
-        return film_mlp_bwd_plain(x, film, dy, w, bf16, need_dx)
+        return film_mlp_bwd_plain(x, film, dy, w, bf16, need_dx, fast)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n_img, n_pts, wp = _check_inputs(x, film, w, bf16)
@@ -484,23 +510,47 @@ def film_mlp_bwd(x: torch.Tensor, film: torch.Tensor, dy: torch.Tensor, w,
             tile_sums.data_ptr(), img_sums.data_ptr(), partials.data_ptr(),
             splits, tasks, len(_TASKS) // 5, grads.data_ptr(), BIAS_OFF,
             dfilm.data_ptr(), dx.data_ptr() if need_dx else None, int(bf16),
-            _stream(dev))
+            int(not fast), _stream(dev))
     if err:
         raise RuntimeError(f"film_mlp_bwd launch failed: CUDA error {err}")
     film_mlp_bwd.launches += 1
+    film_mlp_bwd.launches_exact += not fast
     DW.dw_splitk.launches += -(-n_img // cb) if bf16 else 0  # one per chunk
     return dx, dfilm, [grads[GRAD_OFFS[k][0]:GRAD_OFFS[k][1]].view(
         PACK_SHAPES[k]) for k in PACK_KEYS]
 
 
-film_mlp_bwd.launches = 0
+film_mlp_bwd.launches = film_mlp_bwd.launches_exact = 0
+
+
+def sin_eval(v: torch.Tensor, fast_sin: bool, vjp: bool = False
+             ) -> torch.Tensor:
+    """The kernels' trunk sine (``vjp``: its derivative) on fp32 ``v``, for
+    measuring its accuracy: on a CUDA tensor the device functions of
+    ``csrc/film_mlp.cu`` (``film_sin_eval``), on a CPU tensor
+    ``trunk_sin``/``trunk_sin_vjp``."""
+    if v.device.type == "cpu":
+        return (trunk_sin_vjp if vjp else trunk_sin)(v.float(), fast_sin)
+    _check(v, "v", (v.numel(),), torch.float32, v.device)
+    out = torch.empty_like(v)
+    with torch.cuda.device(v.device):
+        err = _lib().film_sin_eval(v.data_ptr(), out.data_ptr(), v.numel(),
+                                   1 + int(vjp) + 2 * int(not fast_sin),
+                                   _stream(v.device))
+    if err:
+        raise RuntimeError(f"film_sin_eval launch failed: CUDA error {err}")
+    sin_eval.launches += 1
+    return out
+
+
+sin_eval.launches = 0
 
 KERNELS = (film_mlp_fwd, film_mlp_bwd)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.launches_exact = 0
     film_mlp_fwd.launches_f32 = 0
 
 
@@ -510,18 +560,21 @@ def reset_launch_counts() -> None:
 
 
 class FilmTrunkFunction(torch.autograd.Function):
-    """The FiLM trunk with K7 as its backward.  ``primal(x, film)`` computes
-    the forward through K8 (``k8_primal``): in ``fused_film_apply``'s
-    precision, or in fp32 for the hybrid mode of models/pigan.py; no graph
-    is recorded, and the residuals are only the parameters, x and film."""
+    """The FiLM trunk with K7 as its backward.  ``primal(x, film,
+    fast_sin)`` computes the forward through K8 (``k8_primal``): in
+    ``fused_film_apply``'s precision, or in fp32 for the hybrid mode of
+    models/pigan.py; no graph is recorded, and the residuals are only the
+    parameters, x and film.  The trunk sine is read once, here, and the
+    backward takes the same one."""
 
     @staticmethod
     def forward(ctx, x, film, primal, names, use_dir, bf16, need_dx,
                 *params):
         ctx.names, ctx.use_dir, ctx.bf16, ctx.need_dx = (names, use_dir,
                                                          bf16, need_dx)
+        ctx.fast_sin = core_nn.USE_FAST_SIN
         ctx.save_for_backward(x, film, *params)
-        return primal(x, film)
+        return primal(x, film, ctx.fast_sin)
 
     @staticmethod
     def backward(ctx, dy):
@@ -533,7 +586,8 @@ class FilmTrunkFunction(torch.autograd.Function):
         dy_pad = F.pad(dy.reshape(n_img, p, 4).float(),
                        (0, OUT_PAD - 4, 0, x_pad.shape[1] - p))
         dx_pad, dfilm, grads = film_mlp_bwd(x_pad, film.contiguous().float(),
-                                            dy_pad, w, ctx.bf16, ctx.need_dx)
+                                            dy_pad, w, ctx.bf16, ctx.need_dx,
+                                            ctx.fast_sin)
         if ctx.need_dx:
             dx = dx_pad[:, :p, :6].reshape(x.shape)
         else:
@@ -558,15 +612,17 @@ def fused_film_apply(params: dict, x: torch.Tensor, film: torch.Tensor,
 
 
 def k8_primal(params: dict, use_dir: bool, bf16: bool):
-    """``primal(x, film)``: the trunk through K8 (``film_mlp_fwd`` in bf16
-    or fp32), x ``[B, ..., 6]``, film ``[B, 9, 512]`` -> ``[B, ..., 4]``."""
+    """``primal(x, film, fast_sin)``: the trunk through K8 (``film_mlp_fwd``
+    in bf16 or fp32), x ``[B, ..., 6]``, film ``[B, 9, 512]`` -> ``[B, ...,
+    4]``."""
 
-    def primal(x, film):
+    def primal(x, film, fast_sin):
         n_img = film.shape[0]
         packed = pack_film_params(params, use_dir)
         w = kernel_weights([packed[k] for k in PACK_KEYS], bf16)
         x_pad, p = pad_points(x, n_img)
-        out = film_mlp_fwd(x_pad, film.contiguous().float(), w, bf16)
+        out = film_mlp_fwd(x_pad, film.contiguous().float(), w, bf16,
+                           fast_sin)
         return out[:, :p, :4].reshape(*x.shape[:-1], 4)
 
     return primal

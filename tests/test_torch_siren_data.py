@@ -92,3 +92,28 @@ def test_dem_cloud_is_bitwise_jax(closed):
     hj, xj, yj = jpointcloud.load_dem_heightfield()
     for a, b in ((h, hj), (x, xj), (y, yj)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["grace_hopper.jpg",
+                                  "jacksboro_fault_dem.npz"])
+def test_sample_data_is_matplotlibs_file_byte_for_byte(name):
+    """The --real gates' data in the port (data/sample_data/) are the
+    files the JAX tools read from matplotlib's sample data, byte for byte."""
+    import os
+
+    import matplotlib.cbook as cbook
+
+    from msra_practice_project_tpu_torch.data import SAMPLE_DATA
+    with open(os.path.join(SAMPLE_DATA, name), "rb") as a, open(
+            cbook.get_sample_data(name, asfileobj=False), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_dem_reads_the_repos_copy_and_a_missing_file_raises(monkeypatch,
+                                                            tmp_path):
+    """No matplotlib fallback: with the copy gone, loading raises."""
+    before = pointcloud.load_dem_heightfield()[0]
+    assert before.shape == (344, 403)
+    monkeypatch.setattr(pointcloud, "SAMPLE_DATA", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        pointcloud.load_dem_heightfield()

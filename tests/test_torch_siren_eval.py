@@ -135,11 +135,13 @@ def test_validate_img_main_on_the_cpu(tmp_path):
 
 
 def test_validate_img_real_photo_on_the_cpu(tmp_path, monkeypatch):
-    """``--real``: the JAX tool's photo (matplotlib's grace_hopper.jpg),
-    read through data_path at its own size; here a 12 x 10 crop of it
-    keeps the run small."""
+    """``--real``: the JAX tool's photo (matplotlib's grace_hopper.jpg), from
+    the port's copy (byte for byte matplotlib's), read through data_path at
+    its own size; here a 12 x 10 crop of it keeps the run small."""
     path = VI.real_photo_path()
-    assert path == JVI.real_photo_path() and os.path.exists(path)
+    with open(path, "rb") as a, open(JVI.real_photo_path(), "rb") as b:
+        assert a.read() == b.read()
+    assert "matplotlib" not in path
     crop = str(tmp_path / "crop.png")
     Image.open(path).crop((200, 200, 212, 210)).save(crop)
     monkeypatch.setattr(VI, "real_photo_path", lambda: crop)

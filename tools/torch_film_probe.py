@@ -71,8 +71,10 @@ _TF_REGS = [("  if (threadIdx.x >= TF_CONSUMERS) {\n    tc_regs_producer();\n",
 EDITS = {
     "as_is": [],
     "no_epilogue": [(_WALK, "  for (int jb = 0; jb < 0; jb += TC_JB) {")],
-    "no_sine": [("hv[cc] = trunk_sin(__fmul_rn(", "hv[cc] = (__fmul_rn("),
-                ("trunk_sin_vjp(__fmul_rn(W0F, v))", "(__fmul_rn(W0F, v))")],
+    "no_sine": [("hv[cc] = trunk_sin<EXACT>(__fmul_rn(",
+                 "hv[cc] = (__fmul_rn("),
+                ("trunk_sin_vjp<EXACT>(__fmul_rn(W0F, v))",
+                 "(__fmul_rn(W0F, v))")],
     "branchy": [(_SELECT, _BRANCH)],
     "jb2": [(_JB, "constexpr int TC_JB = 2;")],
     "jb8": [(_JB, "constexpr int TC_JB = 8;")],

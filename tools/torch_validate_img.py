@@ -5,9 +5,10 @@ counterpart of tools/validate_img.py).
 Trains the image-regression pipeline (the reference's cameraman workload,
 siren/train_img.py) through ``train_img.train`` on a band-limited
 synthetic image and checks the full-grid reconstruction PSNR: SIREN must
-exceed 40 dB and the ReLU+PE ablation 28 dB.  ``--real`` fits matplotlib's
-bundled grace_hopper.jpg instead, with the JAX tool's lower bars (28 and
-23 dB).  Exit code 1 when a bar is missed.
+exceed 40 dB and the ReLU+PE ablation 28 dB.  ``--real`` fits
+grace_hopper.jpg instead (the JAX tool's photo, matplotlib's sample data,
+read from the port's copy in data/sample_data/), with the JAX tool's lower
+bars (28 and 23 dB).  Exit code 1 when a bar is missed.
 
 Run: python3 tools/torch_validate_img.py [iterations] [size] [--real]
          [--device cpu] [--out DIR]
@@ -27,6 +28,7 @@ import numpy as np  # noqa: E402
 
 from msra_practice_project_tpu_torch.core.config import (  # noqa: E402
     SIREN_IMG_DEFAULTS, resolve)
+from msra_practice_project_tpu_torch.data import SAMPLE_DATA  # noqa: E402
 from msra_practice_project_tpu_torch.train.train_img import (  # noqa: E402
     render_grid, train)
 
@@ -38,12 +40,14 @@ BARS_REAL_DB = {"siren": 28.0, "relu_pe": 23.0}
 
 
 def real_photo_path() -> str:
-    """A real photograph shipped offline: matplotlib's bundled
-    grace_hopper.jpg (the reference's workload is the same single-photo
-    regression on cameraman.jpg, siren/train_img.py:32)."""
-    import matplotlib.cbook as cbook
-
-    return cbook.get_sample_data("grace_hopper.jpg", asfileobj=False)
+    """A real photograph shipped offline: the port's copy of matplotlib's
+    grace_hopper.jpg (data/sample_data/; the reference's workload is the
+    same single-photo regression on cameraman.jpg, siren/train_img.py:32).
+    Raises when the file is missing."""
+    path = os.path.join(SAMPLE_DATA, "grace_hopper.jpg")
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    return path
 
 
 def run_one(model_type: str, iterations: int, size: int, base: str,
@@ -107,7 +111,7 @@ def parse_args(argv):
     p.add_argument("iterations", nargs="?", type=int, default=1500)
     p.add_argument("size", nargs="?", type=int, default=64)
     p.add_argument("--real", action="store_true",
-                   help="fit matplotlib's grace_hopper.jpg")
+                   help="fit grace_hopper.jpg (data/sample_data/)")
     p.add_argument("--device", default=None,
                    help="cpu to run on the CPU (default: CUDA)")
     p.add_argument("--out", default=None,

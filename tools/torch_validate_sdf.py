@@ -6,9 +6,10 @@ Trains the SIREN SDF pipeline (``train_sdf.train``) on an analytic sphere
 point cloud (radius 0.6, 60,000 points, batch 8,192) and checks the
 extracted isosurface (n 128) against ground truth: the mean |r - 0.6| must
 be under one voxel and its 95th percentile under three.  ``--real`` fits
-the USGS Jacksboro Fault DEM bundled with matplotlib, closed into a solid
-block, through the ``.npz`` data path, and gates the top surface's
-|z - DEM| the same way.  Exit code 1 when a gate fails.
+the USGS Jacksboro Fault DEM (the port's copy of matplotlib's sample file,
+data/sample_data/), closed into a solid block, through the ``.npz`` data
+path, and gates the top surface's |z - DEM| the same way.  Exit code 1 when
+a gate fails.
 
 Run: python3 tools/torch_validate_sdf.py [iterations] [--real]
          [--device cpu] [--out DIR]
@@ -143,7 +144,7 @@ def parse_args(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("iterations", nargs="?", type=int, default=4000)
     p.add_argument("--real", action="store_true",
-                   help="fit the Jacksboro Fault DEM (matplotlib's data)")
+                   help="fit the Jacksboro Fault DEM (data/sample_data/)")
     p.add_argument("--device", default=None,
                    help="cpu to run on the CPU (default: CUDA)")
     p.add_argument("--out", default=None,
