@@ -2,7 +2,8 @@
 ``msra_practice_project_tpu/eval/analysis_param.py``): the mean
 PSNR/SSIM/LPIPS/perceptual distance per split against a swept parameter
 value (pose noise, view count, ...), one line per split.  matplotlib is
-imported inside ``run``.
+imported inside ``run``; where it is not installed, ``run`` draws nothing
+and says so.
 
 Run: python -m msra_practice_project_tpu_torch.eval.analysis_param
      <out_prefix> <param_value:log_dir> [param_value:log_dir ...]
@@ -18,7 +19,9 @@ from .analysis_view import load_test_json, pyplot
 
 
 def run(out_prefix: str, sweep: list[tuple[float, str]]):
-    plt = pyplot()
+    plt = pyplot("analysis_param")
+    if plt is None:
+        return
     # one read per log dir; an entry without a test.json (trained but never
     # swept by test_nerf) is skipped with a note instead of aborting
     cache = {}

@@ -2,7 +2,8 @@
 ``msra_practice_project_tpu/eval/analysis_view.py``): scatter and
 B-spline-smoothed curves of PSNR/SSIM/LPIPS/perceptual distance against the
 angular distance, for one or more experiments (typically with and without
-alpha supervision).  matplotlib is imported inside ``run``.
+alpha supervision).  matplotlib is imported inside ``run``; where it is
+not installed, ``run`` draws nothing and says so.
 
 Run: python -m msra_practice_project_tpu_torch.eval.analysis_view
      <out_prefix> <log_dir1> [log_dir2 ...]
@@ -40,16 +41,24 @@ def load_test_json(log_path: str) -> dict:
         return json.load(f)
 
 
-def pyplot():
-    """matplotlib's pyplot on the headless Agg backend."""
-    import matplotlib
+def pyplot(who: str):
+    """matplotlib's pyplot on the headless Agg backend, or None (with a
+    note from ``who``) where matplotlib is not installed: the plots are the
+    one output that needs it."""
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"[{who}] matplotlib is not installed: no plots drawn")
+        return None
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
     return plt
 
 
 def run(out_prefix: str, log_paths: list[str]):
-    plt = pyplot()
+    plt = pyplot("analysis_view")
+    if plt is None:
+        return
     # "perceptual" is LPIPS when weights exist, else 1-MS-SSIM (test_nerf
     # writes which into test.json["perceptual_metric"])
     metric_names = ["psnr", "ssim", "lpips", "perceptual"]

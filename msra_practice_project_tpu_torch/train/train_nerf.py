@@ -10,8 +10,8 @@
   * On CUDA both MLP calls of the PE NeRF's step go through the fused
     kernels (``ops/kernels/nerf_mlp.py``: K1 forward with saved activations,
     K2 backward, bf16 tensor-core matmuls), as ``use_fused_mlp`` does on the
-    TPU, and ``use_fused_mlp=False`` raises there; the SIREN NeRF and the
-    CPU use the plain models (``uses_fused_mlp``).
+    TPU; ``use_fused_mlp=False``, the SIREN NeRF and the CPU use the plain
+    models (``uses_fused_mlp``).
   * ``steps_per_call`` is read but the loop runs one step per iteration: the
     JAX trainer scans that many steps per dispatch, which is the same math.
   * Exact resume: the batch stream is a pure function of (seed, config,
@@ -114,17 +114,13 @@ def sample_startup_batch(startup_buf, generator: torch.Generator,
 
 def uses_fused_mlp(cfg, device) -> bool:
     """Whether the step's MLP calls go through the fused kernels: the PE
-    NeRF on CUDA, as the JAX trainer sends it to its Pallas kernel on the
-    TPU.  The SIREN NeRF (no kernel in either package) runs the plain
-    models, and so does the CPU.  On CUDA the PE NeRF has no plain route,
-    so ``use_fused_mlp=False`` raises there."""
-    if torch.device(device).type != "cuda" or cfg.get("use_siren", False):
-        return False
-    if not cfg.get("use_fused_mlp", True):
-        raise NotImplementedError(
-            "on CUDA the PE NeRF's MLP runs only through the fused kernels: "
-            "use_fused_mlp=False is not supported")
-    return True
+    NeRF on CUDA unless ``use_fused_mlp`` is false, as the JAX trainer
+    sends it to its Pallas kernel on the TPU (JAX
+    ``train/train_nerf.py:97-99``).  The SIREN NeRF (no kernel in either
+    package), ``use_fused_mlp=False`` and the CPU run the plain models."""
+    return (torch.device(device).type == "cuda"
+            and bool(cfg.get("use_fused_mlp", True))
+            and not cfg.get("use_siren", False))
 
 
 def make_train_step(coarse_model, fine_model, opt, cfg, device):

@@ -218,23 +218,23 @@ def test_render_image_edge_padding_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (and chip_smoke.py,
-    tools/torch_roofline_nerf.py, tools/torch_dw_probe.py,
-    tools/torch_film_probe.py and tools/torch_nerf_probe.py) loads no JAX
-    and no module of
+    """Importing every module of the port, chip_smoke.py and every
+    tools/torch_*.py loads no JAX and no module of
     msra_practice_project_tpu.  Exact names: the JAX package's name is a
     prefix of the port's."""
     code = r"""
-import importlib, importlib.util, pkgutil, sys
+import glob, importlib, importlib.util, os, pkgutil, sys
 import msra_practice_project_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
-for tool in ("torch_roofline_nerf", "torch_dw_probe", "torch_film_probe",
-             "torch_nerf_probe"):
-    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+tools = sorted(glob.glob("tools/torch_*.py"))
+for path in tools:
+    tool = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(tool, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert len(tools) >= 19, tools
 bad = [m for m in sys.modules
        if m in ("jax", "jaxlib", "optax", "flax", "msra_practice_project_tpu")
        or m.startswith(("jax.", "jaxlib.", "optax.", "flax.",

@@ -210,16 +210,28 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("override", [dict(use_fused_mlp=False)])
 def test_cuda_step_has_no_plain_route(override):
-    """On CUDA the PE NeRF's MLP runs through the fused kernels or the step
-    raises; the plain model is the CPU's route only."""
+    """By default the PE NeRF's MLP runs through the fused kernels on CUDA.
+    With ``use_fused_mlp=False`` the step built for CUDA takes the plain
+    models, as the JAX trainer does: run on CPU tensors it equals the CPU
+    step bitwise."""
     assert train_nerf.uses_fused_mlp(NERF_TRAIN_DEFAULTS, "cuda")
     assert not train_nerf.uses_fused_mlp(NERF_TRAIN_DEFAULTS, "cpu")
-    m = nerf_model()
-    opt = common.adam(list(m.parameters()), common.exponential_lr(5e-4, 500))
-    cfg = dict(NERF_TRAIN_DEFAULTS, **override)
-    with pytest.raises(NotImplementedError, match="fused kernels"):
-        train_nerf.make_train_step(m, m, opt, cfg, "cuda")
-    assert callable(train_nerf.make_train_step(m, m, opt, cfg, "cpu"))
+    cfg = dict(NERF_TRAIN_DEFAULTS, render_coarse_sample_num=4,
+               render_fine_sample_num=4, **override)
+    assert not train_nerf.uses_fused_mlp(cfg, "cuda")
+    batch = torch.from_numpy(_batch(np.random.default_rng(1), 8))
+    outs, weights = [], []
+    for device in ("cuda", "cpu"):
+        m = nerf_model(generator=torch.Generator().manual_seed(0))
+        opt = common.adam(list(m.parameters()),
+                          common.exponential_lr(5e-4, 500))
+        step = train_nerf.make_train_step(m, m, opt, cfg, device)
+        outs.append(step(batch, generator=torch.Generator().manual_seed(0)))
+        weights.append([p.detach().clone() for p in m.parameters()])
+    for k in outs[0]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    for a, b in zip(*weights):
+        assert torch.equal(a, b)
 
 
 def test_cuda_siren_step_takes_plain_models():

@@ -94,6 +94,25 @@ def main(iterations=4000, device=None, out_dir=None, overrides=None) -> dict:
     return res
 
 
+def dem_surface_error(verts: np.ndarray) -> np.ndarray:
+    """|z - DEM| of the mesh vertices on the block's top surface: inside
+    0.9 of the footprint and above the bottom face."""
+    from scipy.interpolate import RegularGridInterpolator
+
+    from msra_practice_project_tpu_torch.data.pointcloud import (
+        load_dem_heightfield)
+
+    height, x_lin, y_lin = load_dem_heightfield(EXTENT)
+    interp = RegularGridInterpolator((y_lin, x_lin), height)
+    inside = (np.abs(verts[:, 0]) <= 0.9 * EXTENT) & \
+        (np.abs(verts[:, 1]) <= 0.9 * EXTENT) & \
+        (verts[:, 2] >= Z_BOTTOM + 0.07)
+    v = verts[inside]
+    if not v.size:
+        return np.zeros(0)
+    return np.abs(v[:, 2] - interp(np.stack([v[:, 1], v[:, 0]], axis=1)))
+
+
 def main_real(iterations=4000, device=None, out_dir=None,
               overrides=None) -> dict:
     """The real-terrain gate: the DEM closed into a watertight block (an
@@ -101,10 +120,8 @@ def main_real(iterations=4000, device=None, out_dir=None,
     its boundary), written as an ``.npz`` cloud and read through
     ``data_path``; the top surface inside 0.9 of the footprint and above
     the bottom face is gated against the heightfield."""
-    from scipy.interpolate import RegularGridInterpolator
-
     from msra_practice_project_tpu_torch.data.pointcloud import (
-        load_dem_heightfield, make_dem_cloud)
+        make_dem_cloud)
 
     base = _base(out_dir)
     os.makedirs(base, exist_ok=True)
@@ -118,21 +135,14 @@ def main_real(iterations=4000, device=None, out_dir=None,
     res, verts = _train(base, "dem", iterations, device, overrides,
                         data_path=cloud_path)
 
-    height, x_lin, y_lin = load_dem_heightfield(EXTENT)
-    interp = RegularGridInterpolator((y_lin, x_lin), height)
-    inside = (np.abs(verts[:, 0]) <= 0.9 * EXTENT) & \
-        (np.abs(verts[:, 1]) <= 0.9 * EXTENT) & \
-        (verts[:, 2] >= Z_BOTTOM + 0.07)
-    v = verts[inside]
-    err = np.abs(v[:, 2] - interp(np.stack([v[:, 1], v[:, 0]], axis=1))) \
-        if v.size else np.zeros(0)
+    err = dem_surface_error(verts)
     res["mean_err"], res["p95_err"] = error_stats(err)
-    res["in_region"], res["voxel"] = int(v.shape[0]), VOXEL
-    print(f"[validate] mesh: {res['verts']} verts ({v.shape[0]} in-region),"
+    res["in_region"], res["voxel"] = int(err.size), VOXEL
+    print(f"[validate] mesh: {res['verts']} verts ({err.size} in-region),"
           f" {res['faces']} faces")
     print(f"[validate] |z - DEM|: mean {res['mean_err']:.4f}, "
           f"p95 {res['p95_err']:.4f}, voxel {VOXEL:.4f}")
-    res["ok"] = bool(v.shape[0] > 5000 and res["mean_err"] < VOXEL
+    res["ok"] = bool(err.size > 5000 and res["mean_err"] < VOXEL
                      and res["p95_err"] < 3 * VOXEL)
     print("[validate]", "PASS" if res["ok"] else "FAIL",
           "(real-terrain surface recovered to <1 voxel mean, <3 voxel p95)",
