@@ -195,8 +195,9 @@ the kernels' exact-sine instantiations on the card):
   30. K8 in fp32 and bf16 and K7 with the exact sine per launch at both
      shapes beside their plain versions and a bound that counts the exact
      sine's SASS instructions (the polynomial rows' times are phase 15's).
-The repo-level tools and use_fused_mlp=False (each phase's seconds
-printed; the tools at cut schedules, their defaults run by hand):
+The repo-level tools, use_fused_mlp=False and pi-GAN's plain trunk (each
+phase's seconds printed; the tools at cut schedules, their defaults run by
+hand):
   31. train_nerf.train on the lego recipe with use_fused_mlp=False, 30
      iterations: the plain models (fp32 cuBLAS), no kernel of the port
      launched, the loss falling; ms/step over the last 20 beside phase 3's;
@@ -217,17 +218,23 @@ printed; the tools at cut schedules, their defaults run by hand):
      32x32, 16 at 64x64), 5 timed calls a row: every row finite, the rows
      that run G with K8 in fp32 twice per call and K7 once per backward,
      the five largest device kernels of D's rows;
-  35. tools/torch_film_modes.py at stage 1: G fwd and fwd+bwd in modes 0
-     (no launch; its fwd+bwd may read out of memory: the plain trunk's
-     graph), 1 (K8 fp32 2 per call, K7 1 per backward) and 2 (K8 bf16, K7),
-     the caller's MSRA_TPU_FUSED_FILM restored;
+  35. tools/torch_film_modes.py: G fwd and fwd+bwd in mode 0 at stage 0
+     and in modes 0 (no launch), 1 (K8 fp32 2 per call, K7 1 per backward)
+     and 2 (K8 bf16, K7) at stage 1, every row finite, mode 0's fwd+bwd
+     peak memory printed and at most 48 GiB at each stage (the plain trunk
+     under autograd), the caller's MSRA_TPU_FUSED_FILM restored;
   36. tools/torch_soak_siren.py's image (300 steps) and SDF (300 steps,
      killed past the checkpoint at 25% and resumed, the final mesh at n
      128) soaks: both trainer CLIs exit 0, both logs span every step, no
      launch in this process, and the SIREN trainers load no kernel module
      of the port (so their CLIs cannot launch one);
   37. tools/torch_pigan_ckpt_grids.py on phase 18's gate experiment: one
-     row per checkpoint, K8 in fp32 only, 2 launches per checkpoint.
+     row per checkpoint, K8 in fp32 only, 2 launches per checkpoint;
+  38. train_pigan.train on test.json in mode 0 (MSRA_TPU_FUSED_FILM=0, the
+     plain trunk) over both stages, iterations [3, 6] with fade-in [0, 2]:
+     no kernel of the port launched (the demo grid included), every loss
+     finite, the checkpoint and the demo grid of iteration 6 written, ms
+     per iteration at stage 1 and the peak memory printed.
 The split-K pass's launches are counted over every path: 2 per NeRF step
 (K2's), 1 per K5 chunk, 1 per K7 chunk; the delta chain's: 2 per NeRF step
 (K2's), 1 per bf16 K5 chunk.
@@ -1459,14 +1466,16 @@ def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
                files=False):
     """One pi-GAN run; fails unless every loss is finite, each kernel
     launched `want[name]` times per iteration besides the launches counted
-    around the demo grids (K8 in mode 1's fp32 only, and at least one when
-    a grid is written), the split-K pass at least once per K7 launch (once
-    per chunk of images) and, with `files`, the last iteration wrote its
-    checkpoint and its demo grid."""
+    around the demo grids (K8 in mode 1's fp32 only, at least one when a
+    grid is written, and none in mode 0), the split-K pass at least once
+    per K7 launch (once per chunk of images) and, with `files`, the last
+    iteration wrote its checkpoint and its demo grid."""
     ms, launches, log, ckpt, png, demo = run_pigan(
         torch, FK, mode, overrides, timed, window_end)
     n_it = overrides["iterations"][-1]
-    batch = overrides.get("batch_size", [64])[0]
+    # the window's stage: test.json's batch sizes unless overridden
+    batch = overrides.get("batch_size", [64, 16])[
+        sum(window_end > i for i in overrides["iterations"][:-1])]
     losses = log["d_loss"] + log["g_loss"]
     finite = (len(losses) == 2 * n_it
               and all(v == v and abs(v) != float("inf") for v in losses))
@@ -1474,7 +1483,8 @@ def pigan_path(torch, FK, mode, overrides, timed, window_end, want,
               for k, v in launches.items() if k != "dw_splitk"}
     demo_ok = (demo["film_mlp_fwd_f32"]
                == demo["film_mlp_fwd"] * (mode == 1)
-               and (demo["film_mlp_fwd"] > 0 or not files))
+               and (demo["film_mlp_fwd"] == 0 if mode == 0
+                    else demo["film_mlp_fwd"] > 0 or not files))
     print(f"  mode {mode}: d_loss first/last {log['d_loss'][0]:.4f}/"
           f"{log['d_loss'][-1]:.4f}, g_loss first/last "
           f"{log['g_loss'][0]:.4f}/{log['g_loss'][-1]:.4f}, finite {finite}, "
@@ -2579,11 +2589,15 @@ PROFILE_G_ROWS = {"G fwd (render)": (2, 2, 0), "G fwd+bwd": (2, 2, 1),
                   "full d_step": (2, 2, 0), "full g_step": (2, 2, 1)}
 MODE_LAUNCHES = {"0": ((0, 0, 0), (0, 0, 0)), "1": ((2, 2, 0), (2, 2, 1)),
                  "2": ((2, 0, 0), (2, 0, 1))}
-# A known fault of the port, not expected behaviour (ROADMAP.md §3): mode
-# 0's G fwd+bwd, the plain trunk under autograd, does not fit in the card's
-# memory at stage 1 (76.5 GiB peak), where the JAX package's mode 0 runs.
-# The tool reads that row as out of memory; phase 35 lets only that row
-# through and prints it as the open fault.
+# Mode 0's G fwd+bwd (the plain trunk under autograd: FilmSine's lean
+# residuals, the coarse pass without a graph) at each stage: its peak GiB
+# is held to MODE0_MAX_GIB; at stage 0, where phase 34 covers modes 1 and
+# 2, the tool runs mode 0 alone and with fewer calls.
+MODE0_MAX_GIB = 48.0
+MODE0_STAGE0_REPS, MODE0_STAGE0_WARMUP = 2, 1
+# Phase 38: train_pigan.train in mode 0 across both stages of test.json
+MODE0_TRAIN = dict(iterations=[3, 6], fade_in_itrs=[0, 2], i_print=3,
+                   i_save=6, i_image=6)
 
 
 @contextlib.contextmanager
@@ -2728,10 +2742,12 @@ def nerf_soak_path():
 
 def pigan_tools_path(torch, FK):
     """Phases 34-35: tools/torch_profile_pigan.py at both stages of
-    test.json and tools/torch_film_modes.py at stage 1, in this process in
-    the default trunk mode: every row finite, the rows that run G with
-    PROFILE_G_ROWS's launches per call, each mode with MODE_LAUNCHES'.
-    Returns the readings and their K8/K7 launches by path."""
+    test.json, tools/torch_film_modes.py in mode 0 at stage 0 and in every
+    mode at stage 1, in this process in the default trunk mode: every row
+    finite, the rows that run G with PROFILE_G_ROWS's launches per call,
+    each mode with MODE_LAUNCHES', mode 0's G fwd+bwd at each stage within
+    MODE0_MAX_GIB of peak memory.  Returns the readings and their K8/K7
+    launches by path."""
     profile = load_tool("torch_profile_pigan")
     modes = load_tool("torch_film_modes")
     out, by_path = {}, {}
@@ -2753,29 +2769,36 @@ def pigan_tools_path(torch, FK):
                 raise SystemExit(f"the pi-GAN profile at {batch}x{res} "
                                  f"failed: launches {got}")
             out[f"profile_{batch}x{res}"] = r
-        t0 = time.perf_counter()
-        batch, res = PIGAN_STAGES[1]
-        reset_counts()
-        r = modes.main(batch, res, n=TOOL_REPS, warmup=TOOL_WARMUP)
-        torch.cuda.synchronize()
-        by_path["film_modes"] = film_launches(FK)
-        r["seconds"] = time.perf_counter() - t0
-        print(f"  {r['seconds']:.1f} s", flush=True)
-        got = {m: tuple(None if l is None else tuple(l.values())
-                        for l in (v["fwd_launches"], v["fwdbwd_launches"]))
-               for m, v in r["modes"].items()}
-        oom0 = r["modes"]["0"]["fwdbwd_ms"] is None
-        if oom0:
-            print("  KNOWN FAULT (ROADMAP.md §3): mode 0's G fwd+bwd is out "
-                  "of memory at this stage", flush=True)
-            got["0"] = (got["0"][0], MODE_LAUNCHES["0"][1])
-        rows = [v[k] for m, v in r["modes"].items()
-                for k in ("fwd_ms", "fwdbwd_ms")
-                if not (m == "0" and k == "fwdbwd_ms" and oom0)]
-        if not (got == MODE_LAUNCHES and finite(rows)
-                and os.environ.get("MSRA_TPU_FUSED_FILM") is None):
-            raise SystemExit(f"the trunk modes check failed: {got}")
-        out["film_modes"] = r
+        for key, (batch, res), modes_here, n, warmup in (
+                ("film_modes_stage0", PIGAN_STAGES[0], ("0",),
+                 MODE0_STAGE0_REPS, MODE0_STAGE0_WARMUP),
+                ("film_modes", PIGAN_STAGES[1], ("0", "1", "2"), TOOL_REPS,
+                 TOOL_WARMUP)):
+            t0 = time.perf_counter()
+            reset_counts()
+            r = modes.main(batch, res, modes_here, n=n, warmup=warmup)
+            torch.cuda.synchronize()
+            by_path[key] = film_launches(FK)
+            r["seconds"] = time.perf_counter() - t0
+            row0 = r["modes"]["0"]
+            peak = row0["fwdbwd_peak_gib"]
+            print(f"  mode 0 at {batch}x{res}: G fwd peak "
+                  f"{row0['fwd_peak_gib']:.2f} GiB, G fwd+bwd peak "
+                  f"{peak:.2f} GiB (limit {MODE0_MAX_GIB:g}); "
+                  f"{r['seconds']:.1f} s", flush=True)
+            got = {m: tuple(None if l is None else tuple(l.values())
+                            for l in (v["fwd_launches"],
+                                      v["fwdbwd_launches"]))
+                   for m, v in r["modes"].items()}
+            rows = [v[k] for v in r["modes"].values()
+                    for k in ("fwd_ms", "fwdbwd_ms")]
+            if not (got == {m: MODE_LAUNCHES[m] for m in modes_here}
+                    and None not in rows and finite(rows)
+                    and peak <= MODE0_MAX_GIB
+                    and os.environ.get("MSRA_TPU_FUSED_FILM") is None):
+                raise SystemExit(f"the trunk modes check at {batch}x{res} "
+                                 f"failed: {got}, mode 0 peak {peak} GiB")
+            out[key] = r
     finally:
         os.environ.pop("MSRA_TPU_FUSED_FILM", None)
         if old is not None:
@@ -2852,8 +2875,31 @@ def ckpt_grids_path(torch, FK, exp_dir):
     return out, counts
 
 
+def pigan_mode0_path(torch, K, FK):
+    """Phase 38: train_pigan.train on test.json in mode 0 (the plain trunk,
+    MSRA_TPU_FUSED_FILM=0) across both stages, MODE0_TRAIN's schedule:
+    every loss finite, no kernel of the port launched, the last
+    iteration's checkpoint and demo grid written; its peak memory
+    printed."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batch, res = PIGAN_STAGES[1]
+    last = MODE0_TRAIN["iterations"][-1]
+    ms, _, _, _ = pigan_path(
+        torch, FK, 0, MODE0_TRAIN, last - MODE0_TRAIN["iterations"][0] - 1,
+        last - 1, {"film_mlp_fwd": 0.0, "film_mlp_fwd_f32": 0.0,
+                   "film_mlp_bwd": 0.0, "film_mlp_fwd_exact": 0.0,
+                   "film_mlp_bwd_exact": 0.0}, files=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_no_launches(K, FK, "pi-GAN mode 0 training")
+    seconds = time.perf_counter() - t0
+    print(f"  mode 0 at stage 1 ({batch} at {res}x{res}): {ms:.3f} "
+          f"ms/iteration; peak {peak:.2f} GiB; {seconds:.1f} s", flush=True)
+    return {"ms_per_iter_stage1": ms, "peak_gib": peak, "seconds": seconds}
+
+
 def tools_slice(torch, K, FK, summary, kernels, exp_dir):
-    """Phases 31-37; their readings go into `summary` and their launches
+    """Phases 31-38; their readings go into `summary` and their launches
     into the K1, K2, K7 and K8 entries of `kernels`."""
     phase(f"plain NeRF step: train_nerf.train, lego recipe, "
           f"use_fused_mlp=False, {PLAIN_STEPS} iterations")
@@ -2866,7 +2912,8 @@ def tools_slice(torch, K, FK, summary, kernels, exp_dir):
           "(cut from 200000 400 50), a child process")
     summary["nerf_soak"] = nerf_soak_path()
     phase("pi-GAN step profile (tools/torch_profile_pigan.py, both stages) "
-          "and trunk modes (tools/torch_film_modes.py, stage 1)")
+          "and trunk modes (tools/torch_film_modes.py: mode 0 at stage 0, "
+          "every mode at stage 1)")
     summary["pigan_tools"], film_paths = pigan_tools_path(torch, FK)
     phase(f"SIREN soaks: tools/torch_soak_siren.py, image {SOAK_IMG_STEPS} "
           f"and SDF {SOAK_SDF_STEPS} steps (cut from 10000 and 100000)")
@@ -2875,6 +2922,10 @@ def tools_slice(torch, K, FK, summary, kernels, exp_dir):
           "gate's experiment")
     summary["ckpt_grids"], film_paths["ckpt_grids"] = ckpt_grids_path(
         torch, FK, exp_dir)
+    phase(f"pi-GAN mode 0 (the plain trunk): train_pigan.train, test.json, "
+          f"iterations {MODE0_TRAIN['iterations']}, fade-in "
+          f"{MODE0_TRAIN['fade_in_itrs']}")
+    summary["pigan_mode0_train"] = pigan_mode0_path(torch, K, FK)
 
     by_name = {k["name"]: k for k in kernels}
     for name in ("nerf_mlp_fwd_save", "nerf_mlp_bwd_saved",

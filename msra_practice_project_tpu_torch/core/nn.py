@@ -18,6 +18,7 @@ import os
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 # torch.nn.init.calculate_gain equivalents for Xavier init.
 GAINS = {
@@ -183,11 +184,42 @@ def siren_apply(layer: nn.Linear, x: torch.Tensor,
     return trunk_sin(w0 * layer(x))
 
 
+class FilmSine(torch.autograd.Function):
+    """``trunk_sin(w0 * (gamma * lin + beta))`` that saves only lin, gamma
+    and beta for its backward, which recomputes the pre-activation and takes
+    ``trunk_sin_vjp`` of it.  Autograd of the same expression keeps every
+    step of the sine (r, r^2, the Horner partials, the reflection masks),
+    where this keeps lin alone of the point-sized tensors.  The trunk sine is
+    read once, at the forward, and the backward takes the same one.  Once
+    differentiable: a second backward through it raises."""
+
+    @staticmethod
+    def forward(ctx, lin, gamma, beta, w0):
+        ctx.w0, ctx.fast_sin = w0, USE_FAST_SIN
+        ctx.save_for_backward(lin, gamma, beta)
+        return trunk_sin(w0 * (gamma * lin + beta), ctx.fast_sin)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh):
+        lin, gamma, beta = ctx.saved_tensors
+        dv = dh * trunk_sin_vjp(ctx.w0 * (gamma * lin + beta), ctx.fast_sin)
+        dv.mul_(ctx.w0)
+        need = ctx.needs_input_grad
+        return (dv * gamma if need[0] else None,
+                (dv * lin).sum_to_size(gamma.shape) if need[1] else None,
+                dv.sum_to_size(beta.shape) if need[2] else None, None)
+
+
 def film_siren_apply(layer: nn.Linear, x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, w0: float = 30.0) -> torch.Tensor:
     """sin(w0 * (gamma * (x W^T + b) + beta)); gamma/beta broadcast against
-    the feature axis."""
-    return trunk_sin(w0 * (gamma * layer(x) + beta))
+    the feature axis.  Under autograd the sine is ``FilmSine``, whose
+    backward recomputes the pre-activation instead of keeping the sine's
+    steps; without it, the same expression frees ``x W^T + b`` early."""
+    if not torch.is_grad_enabled():
+        return trunk_sin(w0 * (gamma * layer(x) + beta))
+    return FilmSine.apply(layer(x), gamma, beta, w0)
 
 
 def positional_encoding(x: torch.Tensor, length: int) -> torch.Tensor:

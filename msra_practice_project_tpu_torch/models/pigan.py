@@ -313,11 +313,18 @@ class Generator(nn.Module):
         def model_fn(x):
             return self.trunk(x, film, need_dx=False)
 
+        # The coarse pass only places the fine samples (its weights are
+        # detached and its rgb is dropped), so it records no graph: eager
+        # autograd would keep its residuals alive through the fine pass.
+        def coarse_fn(x):
+            with torch.no_grad():
+                return model_fn(x)
+
         # last_dist_mode="mean": bound the final sample interval instead of
         # the reference's 1e10 tail (pi_GAN/render.py:137), whose
         # d alpha / d sigma ~ 1e10 poisons the G gradients where the
         # background shows.
-        out = render_rays(rays_o, rays_d, cfg.near, cfg.far, model_fn,
+        out = render_rays(rays_o, rays_d, cfg.near, cfg.far, coarse_fn,
                           model_fn, nc, nf, last_dist_mode="mean",
                           generator=generator, jitter=jitter)
         return out["rgb_fine"].reshape(film.shape[0], res, res, 3)

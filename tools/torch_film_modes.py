@@ -7,9 +7,10 @@ Times G fwd and G fwd+bwd (a sum loss) at a stage geometry in each
 every call): 0 = the plain trunk (no kernel of the port), 1 = K8 forward in
 fp32 (3xTF32) with K7 backward, 2 = K8 forward and K7 backward in bf16.
 Each mode's K8 and K7 launches per call and peak memory are recorded; a
-row that does not fit in the card's memory reads "out of memory" (mode 0's
-fwd+bwd at test.json's stages: the plain trunk's autograd graph keeps every
-sine intermediate).  The JAX tool's tile
+row that does not fit in the card's memory reads "out of memory".  Mode
+0's fwd+bwd fits at test.json's stages: its FiLM sine saves only its
+pre-FiLM input for the backward (``core.nn.FilmSine``) and the coarse pass
+records no graph.  The JAX tool's tile
 environment variables do not port: the kernels' tile and CTA geometry at
 this shape is printed in their place.  The last line is a JSON object of
 the readings.
@@ -93,9 +94,7 @@ def main(batch=16, res=64, modes=("0", "1", "2"), device=None, n=20,
 
     def run(fn):
         """(ms, launches per call, peak GiB) of ``fn``; ms and launches are
-        None when it does not fit in the device's memory (mode 0's fwd+bwd
-        at test.json's stages: the plain trunk's autograd graph keeps every
-        sine intermediate)."""
+        None when it does not fit in the device's memory."""
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         try:
