@@ -18,6 +18,11 @@
                                (``tools/supervise.py``) can restart it;
                                checkpoint resume makes the restart lossless.
 The reference has no failure detection at all.
+
+Spans (``span``, ``span_steps``, ``reset_spans``) time the stages inside
+the train steps and the render library while a ``torch.profiler`` records:
+the benchmark's traced sub-windows, or ``StepProfiler``'s window, which
+prints them as a table per step.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 class NanDebug:
@@ -74,6 +80,191 @@ def enable_from_config(config) -> NanDebug:
     return NanDebug(config.get("debug_nans", False))
 
 
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+SPAN_ROOTS = 1000       # root occurrences the store keeps since its reset
+
+# A range on the profiler's clock: the fast entry point where torch has it
+# (~1 us a range against ~8 for ``record_function``, on the CPU).
+_RANGE = (getattr(getattr(torch._C, "_profiler", None),
+                  "_RecordFunctionFast", None)
+          or torch.profiler.record_function)
+
+
+class _NoSpan:
+    """What ``span`` returns while nothing records."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_lock = threading.Lock()
+# The open spans, innermost last, of every thread: autograd runs a CUDA
+# backward on its own thread while the caller waits in ``backward()``, and
+# the spans opened there belong under the caller's.
+_stack: list = []
+_roots: list = []       # one list of spans per root occurrence, root first
+_free_events: dict = {}  # CUDA device index -> timing events to reuse
+_streams: dict = {}     # (stream id, device, type) -> its torch Stream
+
+
+def _current_stream():
+    """The current CUDA stream, without building a new ``Stream`` (and
+    switching devices to do so) at every span."""
+    key = torch._C._cuda_getCurrentStream(torch._C._cuda_getDevice())
+    stream = _streams.get(key)
+    if stream is None:
+        stream = _streams[key] = torch.cuda.current_stream()
+    return stream
+
+
+def _record(ev, stream):
+    """``ev`` (a new timing event where None) recorded on ``stream``."""
+    if ev is None:
+        ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+class _Span:
+    __slots__ = ("name", "parent", "spans", "stream", "t0", "t1", "e0", "e1",
+                 "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.parent = self.spans = self.stream = None
+        self.t1 = self.e0 = self.e1 = None
+
+    def __enter__(self):
+        stream = _current_stream() if torch.cuda.is_initialized() else None
+        with _lock:
+            up = _stack[-1] if _stack else None
+            if up is not None:
+                self.parent, self.spans = up.name, up.spans
+            elif len(_roots) < SPAN_ROOTS:
+                self.spans = []
+                _roots.append(self.spans)
+            if self.spans is not None:      # else past the bound: not kept
+                self.spans.append(self)
+                self.stream = stream
+            if self.stream is not None:     # the pool holds events in pairs
+                pool = _free_events.get(stream.device_index)
+                if pool:
+                    self.e1, self.e0 = pool.pop(), pool.pop()
+            _stack.append(self)
+        self._range = _RANGE(self.name)
+        self._range.__enter__()
+        if self.stream is not None:
+            self.e0 = _record(self.e0, self.stream)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        if self.stream is not None:
+            self.e1 = _record(self.e1, self.stream)
+        self._range.__exit__(*exc)
+        with _lock:
+            if _stack[-1] is self:
+                _stack.pop()
+            else:
+                _stack.remove(self)
+        return False
+
+    def device_ms(self) -> float:
+        """The stream's time from entry to exit (waits for the exit); the
+        host's where CUDA was not in use, as CPU ops run as they are
+        called."""
+        if self.stream is None:
+            return (self.t1 - self.t0) / 1e6
+        self.e1.synchronize()
+        return self.e0.elapsed_time(self.e1)
+
+
+def span(name: str):
+    """A context manager that times the block as the span ``name``, nested
+    under the innermost span open in any thread; a span opened with none
+    open is a root.  It records only while a ``torch.profiler`` records and
+    no CUDA graph is being captured: its parent, the host's clock at entry
+    and exit, two CUDA events on the current stream (never waited for
+    here) and a range on the profiler's clock, so a host-and-device trace
+    shows the span around its ops.  Otherwise it returns one shared no-op
+    object."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    if (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing()):
+        return _NO_SPAN
+    return _Span(name)
+
+
+def span_steps(root: str, n: int) -> dict | None:
+    """``{name: {"parent", "count", "host_ms", "device_ms"}}`` over the
+    first ``n`` finished occurrences of the root span ``root`` since the
+    last reset: for each span name opened under them (the root's own
+    included), its parent's name, and its entries, host ms and device ms
+    summed within an occurrence and averaged over the occurrences.  None
+    when no such root was recorded."""
+    with _lock:
+        found = [spans for spans in _roots
+                 if spans[0].name == root and spans[0].t1 is not None][:n]
+    if not found:
+        return None
+    out: dict = {}
+    for spans in found:
+        for s in spans:
+            if s.t1 is None:
+                continue
+            e = out.setdefault(s.name, {"parent": s.parent, "count": 0.0,
+                                        "host_ms": 0.0, "device_ms": 0.0})
+            e["count"] += 1
+            e["host_ms"] += (s.t1 - s.t0) / 1e6
+            e["device_ms"] += s.device_ms()
+    for e in out.values():
+        for k in ("count", "host_ms", "device_ms"):
+            e[k] /= len(found)
+    return out
+
+
+def reset_spans() -> None:
+    """Empty the store; the CUDA events of its finished spans go back to the
+    pool."""
+    with _lock:
+        for spans in _roots:
+            for s in spans:
+                if s.stream is not None and s.t1 is not None:
+                    _free_events.setdefault(s.stream.device_index,
+                                            []).extend((s.e0, s.e1))
+        _roots.clear()
+
+
+def _span_table() -> str:
+    """The store as a table: per root name, each span's entries, host ms
+    and device ms per occurrence of the root."""
+    with _lock:
+        roots: dict = {}
+        for spans in _roots:
+            roots[spans[0].name] = roots.get(spans[0].name, 0) + 1
+    lines = []
+    for root, n in roots.items():
+        per = span_steps(root, n)
+        if per is None:
+            continue
+        lines.append(f"spans per {root} ({n}): name, parent, entries, "
+                     "host ms, device ms")
+        lines += [f"  {name:<22} {e['parent'] or '-':<18} {e['count']:7.2f} "
+                  f"{e['host_ms']:10.3f} {e['device_ms']:10.3f}"
+                  for name, e in per.items()]
+    return "\n".join(lines)
+
+
 class StepProfiler:
     """Traces steps ``(skip, skip + steps]`` of a training loop with
     ``torch.profiler``, CPU activity and, for a CUDA ``device``, the card's.
@@ -91,7 +282,8 @@ class StepProfiler:
     loop ends first) to ``<log_path>/profile/trace_steps_<a>-<b>.json``, a
     Chrome trace (Perfetto, chrome://tracing); ``path`` names it.  The
     device is synchronised at both ends, so the window holds its steps'
-    work and no other."""
+    work and no other.  The window's spans (``span``) are in the trace, and
+    their table is printed when it ends."""
 
     def __init__(self, log_path: str, steps: int = 0, skip: int = 10,
                  device=None):
@@ -115,6 +307,7 @@ class StepProfiler:
             if self.cuda:
                 acts.append(ProfilerActivity.CUDA)
             self._sync()
+            reset_spans()
             self._prof = profile(activities=acts)
             self._prof.start()
             self._start = self._last = step
@@ -136,6 +329,9 @@ class StepProfiler:
         self._prof = None
         self._done = True
         print(f"[profile] trace written to {self.path}")
+        table = _span_table()
+        if table:
+            print(table)
 
 
 class Watchdog:

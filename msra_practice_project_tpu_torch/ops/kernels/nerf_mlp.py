@@ -42,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...core.diagnostics import span
 from ...core.nn import positional_encoding
 from . import dw_splitk as DW
 
@@ -728,14 +729,16 @@ def reset_launch_counts() -> None:
 class _FusedNeRFMLP(torch.autograd.Function):
     """Forward K1 (``save_acts``: the activations are the residuals) or K3
     (the residuals are x and the weights); backward K2 or K5, then K4 when
-    ``need_dx`` (else zeros for x), as the JAX ``_fwd_rule``/``_bwd_rule``."""
+    ``need_dx`` (else zeros for x), as the JAX ``_fwd_rule``/``_bwd_rule``.
+    ``w`` holds the packed weights as the kernels take them
+    (``kernel_weights``); the gradients go to ``packed``."""
 
     @staticmethod
-    def forward(ctx, x_pad, bf16, need_dx, save_acts, *packed):
-        w = kernel_weights(packed, bf16)
+    def forward(ctx, x_pad, bf16, need_dx, save_acts, w, *packed):
         ctx.bf16, ctx.need_dx, ctx.save_acts = bf16, need_dx, save_acts
         if save_acts:
-            out, acts = nerf_mlp_fwd_save(x_pad, w, bf16)
+            with span("nerf_mlp.fwd_call"):
+                out, acts = nerf_mlp_fwd_save(x_pad, w, bf16)
             ctx.save_for_backward(x_pad, acts, *w)
         else:
             out = nerf_mlp_fwd(x_pad, w, bf16)
@@ -748,14 +751,15 @@ class _FusedNeRFMLP(torch.autograd.Function):
         dy = dy.contiguous()
         if ctx.save_acts:
             acts, *w = w
-            grads, dh = nerf_mlp_bwd_saved(w, dy, acts, ctx.bf16)
+            with span("nerf_mlp.bwd_call"):
+                grads, dh = nerf_mlp_bwd_saved(w, dy, acts, ctx.bf16)
         else:
             grads, dh = nerf_mlp_bwd(x_pad, w, dy, ctx.bf16, ctx.need_dx)
         if ctx.need_dx:
             dx = nerf_mlp_dx(x_pad, w, dh, ctx.bf16)
         else:
             dx = torch.zeros_like(x_pad) if ctx.needs_input_grad[0] else None
-        return (dx, None, None, None, *grads)
+        return (dx, None, None, None, None, *grads)
 
 
 def fused_nerf_apply(model, x: torch.Tensor, bf16: bool = True,
@@ -771,13 +775,17 @@ def fused_nerf_apply(model, x: torch.Tensor, bf16: bool = True,
     gradient: only for callers whose x carries no gradient (the train step:
     points built from ray data and detached depths).  When autograd does not
     record, the forward is K3 alone."""
-    packed = pack_nerf_params(model)
-    tensors = [packed[k] for k in PACK_KEYS]
-    x_pad = pad_points(x.float())
+    with span("nerf_mlp.weights"):
+        packed = pack_nerf_params(model)
+        tensors = [packed[k] for k in PACK_KEYS]
+        x_pad = pad_points(x.float())
+        with torch.no_grad():
+            w = kernel_weights(tensors, bf16)
     if torch.is_grad_enabled() and (
             x_pad.requires_grad or any(t.requires_grad for t in tensors)):
-        out = _FusedNeRFMLP.apply(x_pad, bf16, need_dx, save_acts, *tensors)
+        out = _FusedNeRFMLP.apply(x_pad, bf16, need_dx, save_acts, w,
+                                  *tensors)
     else:
-        out = nerf_mlp_fwd(x_pad, kernel_weights(tensors, bf16), bf16)
+        out = nerf_mlp_fwd(x_pad, w, bf16)
     n = x.numel() // x.shape[-1]
     return out[:n, :4].reshape(*x.shape[:-1], 4)

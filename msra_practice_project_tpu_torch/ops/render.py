@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.diagnostics import span
 from ..parallel import mesh
 from .composite import raw_to_outputs
 from .rays import get_rays_flat
@@ -30,28 +31,38 @@ def render_rays(rays_o, rays_d, near, far, coarse_fn, fine_fn,
     rgb/depth/acc maps (``[..., R, 3]`` / ``[..., R]``).  ``jitter``
     (``[..., R, coarse_sample_num]``) replaces the generator's draws.
     """
-    view_dirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     batch_shape = rays_o.shape[:-1]
 
     # Coarse pass: stratified samples.
-    z_vals, mids = stratified_samples(
-        near, far, coarse_sample_num, batch_shape, perturb,
-        generator=generator, jitter=jitter, device=rays_o.device,
-        dtype=rays_o.dtype)
-    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    dirs = view_dirs[..., None, :].expand(pts.shape)
-    raw = coarse_fn(torch.cat([pts, dirs], dim=-1))
-    rgb_c, depth_c, acc_c, weights = raw_to_outputs(
-        raw, z_vals, rays_d, white_bkgd, last_dist_mode)
+    with span("render.samples"):
+        view_dirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        z_vals, mids = stratified_samples(
+            near, far, coarse_sample_num, batch_shape, perturb,
+            generator=generator, jitter=jitter, device=rays_o.device,
+            dtype=rays_o.dtype)
+        pts = (rays_o[..., None, :]
+               + rays_d[..., None, :] * z_vals[..., :, None])
+        dirs = view_dirs[..., None, :].expand(pts.shape)
+        x = torch.cat([pts, dirs], dim=-1)
+    with span("render.mlp"):
+        raw = coarse_fn(x)
+    with span("render.composite"):
+        rgb_c, depth_c, acc_c, weights = raw_to_outputs(
+            raw, z_vals, rays_d, white_bkgd, last_dist_mode)
 
     # Fine pass: importance samples from the coarse weights, merged + sorted.
-    z_samples = sample_pdf(mids, weights[..., 1:-1], fine_sample_num)
-    z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
-    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
-    dirs = view_dirs[..., None, :].expand(pts.shape)
-    raw = fine_fn(torch.cat([pts, dirs], dim=-1))
-    rgb_f, depth_f, acc_f, _ = raw_to_outputs(raw, z_all, rays_d, white_bkgd,
-                                              last_dist_mode)
+    with span("render.resample"):
+        z_samples = sample_pdf(mids, weights[..., 1:-1], fine_sample_num)
+        z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
+        pts = (rays_o[..., None, :]
+               + rays_d[..., None, :] * z_all[..., :, None])
+        dirs = view_dirs[..., None, :].expand(pts.shape)
+        x = torch.cat([pts, dirs], dim=-1)
+    with span("render.mlp"):
+        raw = fine_fn(x)
+    with span("render.composite"):
+        rgb_f, depth_f, acc_f, _ = raw_to_outputs(raw, z_all, rays_d,
+                                                  white_bkgd, last_dist_mode)
 
     return {
         "rgb_coarse": rgb_c, "depth_coarse": depth_c, "acc_coarse": acc_c,
@@ -91,38 +102,42 @@ def render_image(width, height, focal, c2w, near, far, coarse_fn, fine_fn,
     tile order, and keeps its own, so the image is the one a single process
     renders with the same tiles from the same generator state (exactly so
     with ``perturb=False``)."""
-    n_dev = mesh.world()
-    chunk = min(chunk, max(1, -(-width * height // n_dev)))
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
-    rays_o, rays_d = get_rays_flat(width, height, focal, c2w)
-    rays_o, n = _pad_to_multiple(rays_o, chunk * n_dev)
-    rays_d, _ = _pad_to_multiple(rays_d, chunk * n_dev)
-    if jitter is not None:
-        jitter, _ = _pad_to_multiple(jitter.to(rays_o.device), chunk * n_dev)
-    per_rank = rays_o.shape[0] // (chunk * n_dev)
-    first = mesh.rank() * per_rank
-    block = []
-    for t in range(per_rank * n_dev):
-        rows = slice(t * chunk, (t + 1) * chunk)
+    with span("render.image"):
+        n_dev = mesh.world()
+        chunk = min(chunk, max(1, -(-width * height // n_dev)))
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
+        rays_o, rays_d = get_rays_flat(width, height, focal, c2w)
+        rays_o, n = _pad_to_multiple(rays_o, chunk * n_dev)
+        rays_d, _ = _pad_to_multiple(rays_d, chunk * n_dev)
         if jitter is not None:
-            tile_jitter = jitter[rows]
-        elif perturb:
-            tile_jitter = torch.rand((chunk, coarse_sample_num),
-                                     generator=generator, dtype=rays_o.dtype,
-                                     device=rays_o.device)
-        else:
-            tile_jitter = None
-        if not first <= t < first + per_rank:
-            continue
-        out = render_rays(rays_o[rows], rays_d[rows], near, far, coarse_fn,
-                          fine_fn, coarse_sample_num, fine_sample_num,
-                          perturb, white_bkgd, jitter=tile_jitter)
-        block.append(torch.cat([out["rgb_fine"], out["depth_fine"][:, None],
-                                out["acc_fine"][:, None]], dim=-1))
-    full = mesh.all_gather_rows(torch.cat(block))[:n]
-    return (full[:, :3].reshape(height, width, 3),
-            full[:, 3:4].reshape(height, width, 1),
-            full[:, 4:5].reshape(height, width, 1))
+            jitter, _ = _pad_to_multiple(jitter.to(rays_o.device),
+                                         chunk * n_dev)
+        per_rank = rays_o.shape[0] // (chunk * n_dev)
+        first = mesh.rank() * per_rank
+        block = []
+        for t in range(per_rank * n_dev):
+            rows = slice(t * chunk, (t + 1) * chunk)
+            if jitter is not None:
+                tile_jitter = jitter[rows]
+            elif perturb:
+                tile_jitter = torch.rand(
+                    (chunk, coarse_sample_num), generator=generator,
+                    dtype=rays_o.dtype, device=rays_o.device)
+            else:
+                tile_jitter = None
+            if not first <= t < first + per_rank:
+                continue
+            out = render_rays(rays_o[rows], rays_d[rows], near, far,
+                              coarse_fn, fine_fn, coarse_sample_num,
+                              fine_sample_num, perturb, white_bkgd,
+                              jitter=tile_jitter)
+            block.append(torch.cat([out["rgb_fine"],
+                                    out["depth_fine"][:, None],
+                                    out["acc_fine"][:, None]], dim=-1))
+        full = mesh.all_gather_rows(torch.cat(block))[:n]
+        return (full[:, :3].reshape(height, width, 3),
+                full[:, 3:4].reshape(height, width, 1),
+                full[:, 4:5].reshape(height, width, 1))
 
 
 # The JAX package's name for the multi-chip render, which here is

@@ -21,7 +21,7 @@ import torch
 from .. import weights
 from ..core import ckpt as ckpt_lib
 from ..core.config import Config, load_config, resolve
-from ..core.diagnostics import StepProfiler
+from ..core.diagnostics import StepProfiler, span
 from ..parallel import mesh
 
 
@@ -63,11 +63,12 @@ class Adam:
                                     eps=1e-8)
 
     def step(self):
-        lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
-        self.count += 1
+        with span("adam"):
+            lr = self.schedule(self.count)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
+            self.count += 1
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)

@@ -153,31 +153,41 @@ def make_train_step(coarse_model, fine_model, opt, cfg, device):
     dp = mesh.world() > 1
 
     def step(batch, *, generator=None, jitter=None):
-        if dp:
-            if jitter is None:
-                jitter = torch.rand((batch.shape[0], nc), generator=generator,
-                                    device=batch.device)
-            batch, jitter = mesh.local_slice(batch), mesh.local_slice(jitter)
-        rays_o, rays_d = batch[:, 0:3], batch[:, 3:6]
-        target_rgb, target_alpha = batch[:, 6:9], batch[:, 9]
-        out = render_rays(rays_o, rays_d, near, far, apply_c, apply_f, nc, nf,
-                          generator=generator, jitter=jitter)
-        loss_coarse = torch.mean((out["rgb_coarse"] - target_rgb) ** 2)
-        loss_fine = torch.mean((out["rgb_fine"] - target_rgb) ** 2)
-        mse_fine = loss_fine.detach()
-        if use_alpha:
-            loss_coarse = loss_coarse + 0.1 * torch.mean(
-                (out["acc_coarse"] - target_alpha) ** 2)
-            loss_fine = loss_fine + 0.1 * torch.mean(
-                (out["acc_fine"] - target_alpha) ** 2)
-        loss = loss_fine + loss_coarse if use_fine else loss_fine
-        opt.zero_grad()
-        loss.backward()
-        loss, loss_coarse, loss_fine = (
-            loss.detach(), loss_coarse.detach(), loss_fine.detach())
-        if dp:
-            loss, loss_coarse, loss_fine, mse_fine = mesh.all_reduce_grads(
-                params, loss, loss_coarse, loss_fine, mse_fine)
+        with diagnostics.span("nerf.step"):
+            return _step(batch, generator, jitter)
+
+    def _step(batch, generator, jitter):
+        with diagnostics.span("nerf.render"):
+            if dp:
+                if jitter is None:
+                    jitter = torch.rand((batch.shape[0], nc),
+                                        generator=generator,
+                                        device=batch.device)
+                batch = mesh.local_slice(batch)
+                jitter = mesh.local_slice(jitter)
+            rays_o, rays_d = batch[:, 0:3], batch[:, 3:6]
+            out = render_rays(rays_o, rays_d, near, far, apply_c, apply_f,
+                              nc, nf, generator=generator, jitter=jitter)
+        with diagnostics.span("nerf.loss"):
+            target_rgb, target_alpha = batch[:, 6:9], batch[:, 9]
+            loss_coarse = torch.mean((out["rgb_coarse"] - target_rgb) ** 2)
+            loss_fine = torch.mean((out["rgb_fine"] - target_rgb) ** 2)
+            mse_fine = loss_fine.detach()
+            if use_alpha:
+                loss_coarse = loss_coarse + 0.1 * torch.mean(
+                    (out["acc_coarse"] - target_alpha) ** 2)
+                loss_fine = loss_fine + 0.1 * torch.mean(
+                    (out["acc_fine"] - target_alpha) ** 2)
+            loss = loss_fine + loss_coarse if use_fine else loss_fine
+        with diagnostics.span("nerf.backward"):
+            opt.zero_grad()
+            loss.backward()
+            loss, loss_coarse, loss_fine = (
+                loss.detach(), loss_coarse.detach(), loss_fine.detach())
+            if dp:
+                loss, loss_coarse, loss_fine, mse_fine = \
+                    mesh.all_reduce_grads(params, loss, loss_coarse,
+                                          loss_fine, mse_fine)
         opt.step()
         return {"loss": loss, "loss_coarse": loss_coarse,
                 "loss_fine": loss_fine, "psnr": -10.0 * torch.log10(mse_fine)}

@@ -143,21 +143,31 @@ def make_gan_steps(g_model: pigan.Generator,
 
     def d_step(real, z, alpha, noise_std=0.0, *, generator=None, poses=None,
                jitter=None):
+        with diagnostics.span("gan.d_step"):
+            return _d_step(real, z, alpha, noise_std, generator, poses,
+                           jitter)
+
+    def _d_step(real, z, alpha, noise_std, generator, poses, jitter):
         n = z.shape[0]
-        z, poses, jitter = g_inputs(z, generator, poses, jitter)
-        with torch.no_grad():
-            fake = before_d(g_model(z, resolution, poses=poses,
-                                    jitter=jitter), noise_std, generator, n)
-        real_n = before_d(local(real), noise_std, generator, n).detach()
-        real_n.requires_grad_(True)
-        fake_label = d_model(fake, resolution, alpha)
-        real_label = d_model(real_n, resolution, alpha)
-        r1 = r1_penalty(real_label, real_n)
-        loss = (-loss_f(fake_label).mean() - loss_f(-real_label).mean()
-                + r1_lambda * r1)
-        values = reduced_grads(d_params, loss, r1.detach(),
-                               real_label.detach().mean(),
-                               fake_label.detach().mean())
+        with diagnostics.span("gan.fakes"):
+            z, poses, jitter = g_inputs(z, generator, poses, jitter)
+            with torch.no_grad():
+                fake = before_d(g_model(z, resolution, poses=poses,
+                                        jitter=jitter),
+                                noise_std, generator, n)
+        with diagnostics.span("gan.d_forward"):
+            real_n = before_d(local(real), noise_std, generator, n).detach()
+            real_n.requires_grad_(True)
+            fake_label = d_model(fake, resolution, alpha)
+            real_label = d_model(real_n, resolution, alpha)
+        with diagnostics.span("gan.r1"):
+            r1 = r1_penalty(real_label, real_n)
+        with diagnostics.span("gan.d_backward"):
+            loss = (-loss_f(fake_label).mean() - loss_f(-real_label).mean()
+                    + r1_lambda * r1)
+            values = reduced_grads(d_params, loss, r1.detach(),
+                                   real_label.detach().mean(),
+                                   fake_label.detach().mean())
         metrics = dict(zip(("d_loss", "r1", "real_label", "fake_label"),
                            values))
         if d_skip_margin is None or float(metrics["fake_label"]) < \
@@ -172,14 +182,21 @@ def make_gan_steps(g_model: pigan.Generator,
 
     def g_step(z, alpha, noise_std=0.0, *, generator=None, poses=None,
                jitter=None):
+        with diagnostics.span("gan.g_step"):
+            return _g_step(z, alpha, noise_std, generator, poses, jitter)
+
+    def _g_step(z, alpha, noise_std, generator, poses, jitter):
         n = z.shape[0]
-        z, poses, jitter = g_inputs(z, generator, poses, jitter)
-        fake = before_d(g_model(z, resolution, poses=poses, jitter=jitter),
-                        noise_std, generator, n)
-        fake_label = d_model(fake, resolution, alpha)
-        loss = (F.softplus(fake_label).mean() if g_nonsat
-                else loss_f(fake_label).mean())
-        (g_loss,) = reduced_grads(g_params, loss)
+        with diagnostics.span("gan.g_forward"):
+            z, poses, jitter = g_inputs(z, generator, poses, jitter)
+            fake = before_d(g_model(z, resolution, poses=poses,
+                                    jitter=jitter), noise_std, generator, n)
+        with diagnostics.span("gan.g_d_forward"):
+            fake_label = d_model(fake, resolution, alpha)
+            loss = (F.softplus(fake_label).mean() if g_nonsat
+                    else loss_f(fake_label).mean())
+        with diagnostics.span("gan.g_backward"):
+            (g_loss,) = reduced_grads(g_params, loss)
         g_opt.step()
         return {"g_loss": g_loss}
 
