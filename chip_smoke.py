@@ -9,8 +9,9 @@ Phases; any failure exits non-zero:
      HGMMA and no HMMA in the bf16 per-tile kernels of K7 and K8
      (film_mlp), of K1/K3/K6 and K2's delta chain, and in K4's bf16
      kernel (nerf_mlp: dx_tc_kernel), HGMMA on
-     TF32 operands and no HMMA in K8's fp32 kernel (film_fwd_tf32_kernel),
-     and no HMMA anywhere in the NeRF library; each FiLM kernel that takes
+     TF32 operands and no HMMA in K8's fp32 kernel (film_fwd_tf32_kernel)
+     and in the NeRF forward's (nerf_fwd_tf32_kernel), and no HMMA
+     anywhere in the NeRF library; each FiLM kernel that takes
      the trunk sine in both its instantiations (the polynomial and the
      exact sine, MSRA_TPU_FAST_SIN=0), and ptxas (-v) must report no stack
      frame and no spills for any of them;
@@ -31,8 +32,10 @@ NeRF (K1, K2):
   3. the NeRF path: `train_nerf.train` on the lego recipe (1024 rays, 64+128
      samples, full-width NeRF) for 30 iterations, 10 of them start-up, on the
      synthetic Blender scene; both kernels, K2's delta chain and its split-K
-     pass must be launched twice per step.  Its last 20 steps are one timed
-     window (CUDA events): ms/step and rays/s;
+     pass must be launched twice per step, and the fused fp32 forward once
+     per pass of the closing preview render (two PE models without
+     autograd; counted by wrapping ops/render.render_rays).  Its last 20
+     steps are one timed window (CUDA events): ms/step and rays/s;
   4. the same run again with torch.profiler (device activity only) on for
      its timed window: the device's busy time, the window's wall time and
      idle share, and the device time by kernel, all from that one window
@@ -42,8 +45,9 @@ NeRF (K1, K2):
   4b. the NeRF quality gate: tools/torch_validate_nerf.py's main (the easy
      analytic scene rendered at 64x64 and trained for 3000 steps, the
      recipe of BASELINE.md's 37.5 dB) in this process; K1 and K2, K2's
-     delta chain and its split-K pass must be launched twice per step, and
-     the held-out test views' PSNR (plain models) must exceed 28 dB; then
+     delta chain and its split-K pass must be launched twice per step, the
+     fused fp32 forward once per pass of its renders of the trained field,
+     and the held-out test views' PSNR must exceed 28 dB; then
      eval.test_nerf.run on the trained experiment (2 views per split):
      test.json with the JAX test_nerf's keys, lpips null, perceptual_metric
      "1-msssim";
@@ -70,6 +74,16 @@ The rest of the fused NeRF MLP (K3, K6, K5, K4):
      points, on K2's workspace, and beside a yardstick the port never
      calls: cuBLAS, one torch.matmul of K5's [N, 640] delta copy by the
      [640, 96] block matrix of the three PE weights (the products alone);
+  9b. the fused fp32 forward (nerf_fwd_tf32_kernel: K3's function as
+     3xTF32 products on wgmma, NeRFModel.forward's route without autograd
+     on CUDA): ptxas reports no spills; at a 400x400 view tile's two passes
+     (1,048,576 and 3,145,728 points) it holds 1e-4 of max|ref| against its
+     plain version and against the plain model's fp32 forward, two
+     launches are bitwise equal, and the model's forward returns the
+     kernel's output; its time per launch beside its 3xTF32 bound, its
+     plain version and the plain model's forward on cuBLAS; a 200x200
+     render_image of two PE models launches it twice per tile, its rgb
+     within 1e-4 (mean of the smallest 99% of gaps) of the plain models';
 pi-GAN (K7, K8):
   10. hold K8 and K7 against their plain versions at the G step's two trunk
      shapes (64 images of 8,192 and of 24,576 points) and at 3 images of
@@ -169,7 +183,7 @@ its own docstring has the details):
      within 5e-2 relative Frobenius norm and losses within 1e-3 of one
      process at the same weights, the launches counted on each rank, a
      second NeRF run equal bitwise; a 100x100 eval view split over the
-     ranks equal bitwise to the plain render; a one-rank NCCL group's NeRF
+     ranks equal bitwise to one process's render; a one-rank NCCL group's NeRF
      step equal bitwise to a process without a group; the package's dry
      run (dryrun.dryrun_multichip) over two gloo ranks on the card;
   26. exact resume: train_nerf on the lego recipe, 20 steps against 10 and
@@ -199,12 +213,16 @@ The repo-level tools, use_fused_mlp=False and pi-GAN's plain trunk (each
 phase's seconds printed; the tools at cut schedules, their defaults run by
 hand):
   31. train_nerf.train on the lego recipe with use_fused_mlp=False, 30
-     iterations: the plain models (fp32 cuBLAS), no kernel of the port
-     launched, the loss falling; ms/step over the last 20 beside phase 3's;
+     iterations: the plain models (fp32 cuBLAS) in the step, no kernel of
+     the port launched but the fused fp32 forward of the closing preview
+     render (once per pass), the loss falling; ms/step over the last 20
+     beside phase 3's;
   32. tools/torch_ablation_nerf.py 300 64 (cut from 2000) in a temporary
      run root: each of its 4 runs through K1/K2, K2's delta chain and its
      split-K pass twice per step (counted around each train_nerf.train
-     call), a test.json per run with the JAX test_nerf's keys, the
+     call), the fused fp32 forward once per pass of every render (the
+     runs' previews and the held-out views), a test.json per run with the
+     JAX test_nerf's keys, the
      analysis plots where matplotlib is installed (else their skip notes)
      and demo_param.jpg;
   33. tools/torch_soak_nerf.py 1000 100 10 --i-save 100 (cut from 200000
@@ -443,6 +461,120 @@ def check_fwd(torch, K, n):
     return report
 
 
+def view_field(torch, n, seed=0):
+    """A PE NeRF on the card with the source's init and its density bias
+    drawn from [1, 2] (as the benchmark's view cell draws it), and n points
+    on lego-like rays (radius-4 orbit, near 2, far 6, 64 a ray)."""
+    from msra_practice_project_tpu_torch.models.nerf import nerf_model
+
+    g = torch.Generator().manual_seed(seed)
+    model = nerf_model(generator=g)
+    with torch.no_grad():
+        model.sigma.bias.uniform_(1.0, 2.0, generator=g)
+    rays = n // 64
+    ro = torch.randn(rays, 3, generator=g) * 0.1 + torch.tensor([0, 0, 4.0])
+    rd = -ro / ro.norm(dim=-1, keepdim=True) + 0.1 * torch.randn(
+        rays, 3, generator=g)
+    z = 2.0 + 4.0 * torch.rand(rays, 64, generator=g).sort(-1)[0]
+    pts = ro[:, None] + rd[:, None] * z[..., None]
+    dirs = (rd / rd.norm(dim=-1, keepdim=True))[:, None].expand(pts.shape)
+    x = torch.cat([pts, dirs], -1).reshape(-1, 6)
+    return model.cuda().requires_grad_(False), x.cuda()
+
+
+def check_nerf_tf32(torch, K, build):
+    """The fused fp32 forward (nerf_fwd_tf32_kernel): ptxas (-v) must report
+    no spills; at a view tile's two passes (VIEW_TILE_N points) against its
+    plain version (3xTF32 emulated) and the plain model's fp32 forward, each
+    within 1e-4 of max|ref|, two launches bitwise equal, the model's own
+    forward the kernel's output; per launch (CUDA events, median)
+    beside its 3xTF32 bound, its plain version and the plain model's
+    forward on cuBLAS.  Then a 200x200 render_image of two PE models
+    without autograd: the kernel twice per tile of 16,384 rays, and the
+    view's rgb within 1e-4 of the plain models' view (the mean of the
+    smallest 99% of its gaps, as the benchmark's view cell reads it)."""
+    from msra_practice_project_tpu_torch.models.nerf import nerf_model
+    from msra_practice_project_tpu_torch.ops.render import render_image
+
+    use = [v for k, v in build.ptxas_usage("nerf_mlp").items()
+           if NERF_TF32_KERNEL in k]
+    print(f"  ptxas: {NERF_TF32_KERNEL} {use}", flush=True)
+    if len(use) != 1 or use[0].get("spill_stores", 1) or use[0].get(
+            "spill_loads", 1):
+        raise SystemExit(f"{NERF_TF32_KERNEL} spills or is missing")
+    res = {"ptxas": use[0]}
+    for n in VIEW_TILE_N:
+        model, x = view_field(torch, n, seed=n)
+        packed = K.pack_nerf_params(model)
+        w = K.kernel_weights([packed[k] for k in K.PACK_KEYS], False)
+        xp = K.pad_points(x)
+        out = K.nerf_mlp_fwd_tf32(xp, w)
+        again = K.nerf_mlp_fwd_tf32(xp, w)
+        emul = K.nerf_mlp_fwd_tf32_plain(xp, w)
+        with torch.no_grad():
+            plain = model.forward_plain(x)
+            routed = model(x)
+        torch.cuda.synchronize()
+        scale = float(plain.abs().max())
+        r = {"err_vs_plain_version": float((out - emul).abs().max()) / scale,
+             "err_vs_fp32_forward": float((out[:n, :4] - plain).abs().max())
+             / scale,
+             "bitwise_repeat": torch.equal(out, again),
+             "route_is_kernel": torch.equal(routed, out[:n, :4]),
+             "pad_zero": bool((out[:, 4:] == 0).all())}
+        del emul, again
+        r.update(
+            ms=time_ms(torch, lambda: K.nerf_mlp_fwd_tf32(xp, w), 10),
+            plain_ms=time_ms(torch, lambda: K.nerf_mlp_fwd_tf32_plain(xp, w),
+                             3),
+            library_ms=time_ms(torch, lambda: model.forward_plain(x), 5),
+            bound_ms=3 * 2 * K.macs_per_point()["fwd"] * n
+            / VIEW_FLOP_PER_S * 1e3)
+        ok = (r["err_vs_plain_version"] <= 1e-4
+              and r["err_vs_fp32_forward"] <= 1e-4 and r["bitwise_repeat"]
+              and r["route_is_kernel"] and r["pad_zero"])
+        print(f"  N={n}: {r} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit("the fused fp32 NeRF forward disagrees with its "
+                             "plain version or is not reproducible")
+        res[n] = r
+        del model, x, xp, out, plain, routed
+
+    side, chunk = 200, 16384
+    g = torch.Generator().manual_seed(1)
+    coarse, fine = (nerf_model(generator=g) for _ in range(2))
+    with torch.no_grad():
+        for m in (coarse, fine):
+            m.sigma.bias.uniform_(1.0, 2.0, generator=g)
+    coarse, fine = coarse.cuda(), fine.cuda()
+    pose = torch.tensor([[1, 0, 0, 0], [0, 0.5, -0.866, -3.46],
+                         [0, 0.866, 0.5, 2.0], [0, 0, 0, 1.0]])
+
+    def view(cf, ff):
+        return render_image(side, side, 277.78, pose, 2.0, 6.0, cf, ff, 64,
+                            128, chunk=chunk, device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(2))[0]
+
+    before = K.nerf_mlp_fwd_tf32.launches
+    got = view(coarse, fine)
+    launches = K.nerf_mlp_fwd_tf32.launches - before
+    want = view(coarse.forward_plain, fine.forward_plain)
+    gaps = (got - want).abs().reshape(-1).sort()[0]
+    gap = float(gaps[:int(0.99 * gaps.numel())].mean())
+    tiles = -(-side * side // chunk)
+    ok = launches == 2 * tiles and gap <= 1e-4
+    print(f"  render_image {side}x{side}, {tiles} tiles: {launches} launches "
+          f"(2 per tile), rgb gap to the plain models' view {gap:.3e} "
+          f"(widest {float(gaps[-1]):.3e}) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("render_image's PE models did not take the fused "
+                         "fp32 forward twice per tile, or its view is off")
+    res["render"] = {"tiles": tiles, "launches": launches, "rgb_gap": gap}
+    return res
+
+
 def grad_worst(K, got, ref, bf16):
     """(worst per-tensor error: relative Frobenius in bf16, max|err| / max|ref|
     in fp32; the tensor; max |err|) over the packed gradients."""
@@ -559,6 +691,11 @@ EXACT_TAG, EXACT = "Lb1E", "<exact>"
 # K1's (K3's, K6's), K2's delta chain's and K4's (csrc/nerf_mlp.cu)
 NERF_TC_KERNELS = ("nerf_fwd_tc_kernel", "nerf_bwd_delta_tc_kernel",
                    "dx_tc_kernel")
+# the NeRF MLP's fused fp32 forward (3xTF32 on wgmma), and a 400x400 view's
+# tile of 16,384 rays: its coarse and fine passes' points
+NERF_TF32_KERNEL = "nerf_fwd_tf32_kernel"
+VIEW_TILE_N = (16384 * 64, 16384 * 192)
+VIEW_FLOP_PER_S = 494.7e12   # dense TF32, the fp32 bound's rate
 
 
 def film_inputs(torch, FK, n_img, n_pts, seed=0, res=32):
@@ -1112,21 +1249,56 @@ def nerf_launches(K) -> dict:
     return launches
 
 
-def nerf_want(K, steps) -> dict:
+def nerf_want(K, steps, renders=0) -> dict:
     """The counters of `steps` PE NeRF train steps: K1 and K2, K2's delta
-    chain and its split-K pass twice per step, K3-K6 never."""
+    chain and its split-K pass twice per step, K3-K6 never; the fused fp32
+    forward once per pass of a PE model that a render made without
+    autograd (`renders`, a RenderMeter's count)."""
     return {**{k.__name__: 2 * steps if k in (
         K.nerf_mlp_fwd_save, K.nerf_mlp_bwd_saved) else 0
         for k in K.KERNELS}, "dw_splitk": 2 * steps,
-        "nerf_mlp_deltas": 2 * steps}
+        "nerf_mlp_deltas": 2 * steps, "nerf_mlp_fwd_tf32": renders}
+
+
+class RenderMeter:
+    """``ops/render.render_rays`` as ``render_image`` calls it, counting the
+    passes that must go through the fused fp32 forward: each call runs the
+    coarse and the fine model once, and a pass does when its model is a PE
+    NeRFModel that takes the kernel on the call's input (CUDA float32,
+    no autograd: ``nerf_mlp.takes_tf32_kernel``).  The train step calls
+    its own import of render_rays, which this leaves alone."""
+
+    def __init__(self, K, fn):
+        from msra_practice_project_tpu_torch.models.nerf import NeRFModel
+        self.K, self.fn, self.model_cls, self.forwards = K, fn, NeRFModel, 0
+
+    def __call__(self, rays_o, rays_d, near, far, coarse_fn, fine_fn, *args,
+                 **kwargs):
+        self.forwards += sum(isinstance(f, self.model_cls)
+                             and self.K.takes_tf32_kernel(f, rays_o)
+                             for f in (coarse_fn, fine_fn))
+        return self.fn(rays_o, rays_d, near, far, coarse_fn, fine_fn, *args,
+                       **kwargs)
+
+
+@contextlib.contextmanager
+def metered_renders(K):
+    """A RenderMeter in ``ops/render.render_rays``' place for the block."""
+    from msra_practice_project_tpu_torch.ops import render
+    with replaced(render, "render_rays",
+                  RenderMeter(K, render.render_rays)) as meter:
+        yield meter
 
 
 def main_path(torch, K, iterations, startup, timed):
     """The main path with every launch counter set to 0 just before it and
     read just after; K1 and K2, K2's delta chain and its split-K pass must
-    run twice per step, K3-K6 never."""
+    run twice per step, K3-K6 never, the fused fp32 forward once per pass
+    of the closing preview render (and it must have run)."""
     reset_counts()
-    ms, batch, log, ckpt, png = run_train(torch, iterations, startup, timed)
+    with metered_renders(K) as renders:
+        ms, batch, log, ckpt, png = run_train(torch, iterations, startup,
+                                              timed)
     launches = nerf_launches(K)
     losses = log["loss"]
     rays = batch / (ms / 1e3)
@@ -1136,8 +1308,8 @@ def main_path(torch, K, iterations, startup, timed):
           f"ms/step, {rays:,.0f} rays/s", flush=True)
     if not (len(losses) == iterations
             and all(v == v and abs(v) != float("inf") for v in losses)
-            and launches == nerf_want(K, iterations)
-            and ckpt and png):
+            and launches == nerf_want(K, iterations, renders.forwards)
+            and renders.forwards > 0 and ckpt and png):
         raise SystemExit("main path check failed")
     return launches, ms, rays
 
@@ -1161,18 +1333,21 @@ def quality_path(torch, K):
     easy analytic scene (3000 steps at 64x64, run in this process), with
     every launch counter set to 0 just before it and read just after: K1
     and K2, K2's delta chain and its split-K pass twice per step, K3-K6
-    never.  Test PSNR must exceed the tool's 28 dB.  Then
+    never, the fused fp32 forward once per pass of its renders of the
+    trained field.  Test PSNR must exceed the tool's 28 dB.  Then
     eval.test_nerf.run on the trained experiment (2 views per split), whose
     test.json must hold the JAX test_nerf's keys, lpips null (no weights) and
     perceptual_metric "1-msssim"."""
     from msra_practice_project_tpu_torch.eval import test_nerf
     tool = load_tool("torch_validate_nerf")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as out:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as out, \
+            metered_renders(K) as renders:
         reset_counts()
         res = tool.main(QUALITY_STEPS, QUALITY_SIZE, "easy", out_dir=out)
         torch.cuda.synchronize()
         launches = nerf_launches(K)
+        forwards = renders.forwards
         steps = res["steps"]
         gate_s = time.perf_counter() - t0
         data = test_nerf.run(res["log_path"], None, max_views=2)
@@ -1193,8 +1368,8 @@ def quality_path(torch, K):
           f"events over all {steps} steps); gate {gate_s:.1f} s (dataset, "
           f"training, eval), phase "
           f"{seconds:.1f} s; launches {launches}", flush=True)
-    want = nerf_want(K, steps)
-    if launches != want:
+    want = nerf_want(K, steps, forwards)
+    if launches != want or not forwards:
         raise SystemExit(f"quality path launches {launches} != {want}")
     if not res["test"][0] > tool.PASS_DB:
         raise SystemExit(f"NeRF quality gate failed: test PSNR "
@@ -1918,12 +2093,14 @@ def all_launches(K, FK):
     return out
 
 
-def expect_no_launches(K, FK, what):
+def expect_no_launches(K, FK, what, renders=0):
+    """No kernel of the port launched, but the fused fp32 forward once per
+    pass that a RenderMeter counted (`renders`)."""
     launches = all_launches(K, FK)
     print(f"  kernel launches over {what}: {launches}", flush=True)
-    if any(launches.values()):
+    if launches != {**{k: 0 for k in launches}, "nerf_mlp_fwd_tf32": renders}:
         raise SystemExit(f"a kernel of the port launched on {what}: "
-                         f"{launches}")
+                         f"{launches} (renders' passes {renders})")
 
 
 def is_gemm(name: str) -> bool:
@@ -2291,20 +2468,22 @@ def check_sass(build, libs):
     """Fails unless each bf16 per-tile kernel (TC_KERNELS of the FiLM
     library, in both sine instantiations, NERF_TC_KERNELS of the NeRF one)
     has HGMMA (wgmma) and no HMMA (WMMA or mma.sync) in its SASS, K8's fp32
-    kernel (TF32_KERNEL, both instantiations) has HGMMA, all of it on TF32
-    operands, and no HMMA, and the NeRF library has no HMMA at all.
+    kernel (TF32_KERNEL, both instantiations) and the NeRF forward's
+    (NERF_TF32_KERNEL) have HGMMA, all of it on TF32 operands, and no HMMA,
+    and the NeRF library has no HMMA at all.
     Returns ({kernel: (HGMMA count, HMMA count, HGMMA count on TF32)}, the
     SASS instructions of one trunk sine: sine_ops)."""
     out, ok, ops = {}, True, None
+    tf32 = (TF32_KERNEL, NERF_TF32_KERNEL)
     for name, kernels in (("film_mlp", TC_KERNELS + (TF32_KERNEL,)),
-                          ("nerf_mlp", NERF_TC_KERNELS)):
+                          ("nerf_mlp", NERF_TC_KERNELS + (NERF_TF32_KERNEL,))):
         tool, sass = sass_of(build, name, libs[name])
         film = name == "film_mlp"
         counts, hmma_all = sass_counts(sass, kernels, exact=film)
         want = kernels + tuple(k + EXACT for k in kernels if film)
         good = (set(counts) == set(want)
                 and all(g > 0 and h == 0 for g, h, _ in counts.values())
-                and all((t == g) == k.startswith(TF32_KERNEL)
+                and all((t == g) == k.startswith(tf32)
                         for k, (g, _, t) in counts.items())
                 and (film or hmma_all == 0))
         if film:
@@ -2611,13 +2790,16 @@ def run_root(prefix):
 
 def plain_nerf_path(torch, K, FK, fused_ms):
     """Phase 31: train_nerf.train on the lego recipe with
-    use_fused_mlp=False: the plain models (fp32 on cuBLAS), no kernel of
-    the port, the loss falling; ms/step beside the fused step's."""
+    use_fused_mlp=False: the plain models (fp32 on cuBLAS) in the step, no
+    kernel of the port but the fused fp32 forward of the closing preview
+    render (once per pass), the loss falling; ms/step beside the fused
+    step's."""
     t0 = time.perf_counter()
     reset_counts()
-    ms, batch, log, ckpt, _ = run_train(
-        torch, PLAIN_STEPS, PLAIN_STARTUP, PLAIN_TIMED,
-        overrides={"use_fused_mlp": False})
+    with metered_renders(K) as renders:
+        ms, batch, log, ckpt, _ = run_train(
+            torch, PLAIN_STEPS, PLAIN_STARTUP, PLAIN_TIMED,
+            overrides={"use_fused_mlp": False})
     torch.cuda.synchronize()
     losses = log["loss"]
     first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
@@ -2626,7 +2808,7 @@ def plain_nerf_path(torch, K, FK, fused_ms):
           f"ms/step plain against {fused_ms:.3f} through K1/K2 (phase 3), "
           f"{batch / (ms / 1e3):,.0f} rays/s; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    expect_no_launches(K, FK, "the plain NeRF step")
+    expect_no_launches(K, FK, "the plain NeRF step", renders.forwards)
     if not (len(losses) == PLAIN_STEPS and finite(losses) and last < first
             and ckpt):
         raise SystemExit("the plain NeRF path check failed")
@@ -2636,33 +2818,38 @@ def plain_nerf_path(torch, K, FK, fused_ms):
 
 class TrainMeter:
     """A function that calls train_nerf.train and records, per call, the
-    run's experiment, iterations and NeRF kernel launches."""
+    run's experiment, iterations, NeRF kernel launches and the passes of
+    its renders that `renders` (a RenderMeter) counted."""
 
-    def __init__(self, K, fn):
-        self.K, self.fn, self.runs = K, fn, []
+    def __init__(self, K, fn, renders):
+        self.K, self.fn, self.renders, self.runs = K, fn, renders, []
 
     def __call__(self, cfg, **kw):
         before = nerf_launches(self.K)
+        forwards = self.renders.forwards
         out = self.fn(cfg, **kw)
         after = nerf_launches(self.K)
         self.runs.append((cfg["experiment_name"], cfg["iterations"],
-                          {k: v - before[k] for k, v in after.items()}))
+                          {k: v - before[k] for k, v in after.items()},
+                          self.renders.forwards - forwards))
         return out
 
 
 def ablation_path(torch, K, FK):
     """Phase 32: tools/torch_ablation_nerf.py at ABLATION_STEPS, in a
     temporary run root: each of its 4 runs through K1/K2, the chain and the
-    dW pass twice per step, a test.json per run with the JAX test_nerf's
-    keys, the analysis plots (or their skip notes without matplotlib) and
+    dW pass twice per step, the fused fp32 forward once per pass of its
+    renders, a test.json per run with the JAX test_nerf's keys, the
+    analysis plots (or their skip notes without matplotlib) and
     demo_param's grid."""
     from msra_practice_project_tpu_torch.train import train_nerf
 
     tool = load_tool("torch_ablation_nerf")
     t0 = time.perf_counter()
     with run_root("chip_smoke_ablation_") as root, \
+            metered_renders(K) as renders, \
             replaced(train_nerf, "train",
-                     TrainMeter(K, train_nerf.train)) as meter:
+                     TrainMeter(K, train_nerf.train, renders)) as meter:
         reset_counts()
         out = tool.main(ABLATION_STEPS, ABLATION_SIZE)
         torch.cuda.synchronize()
@@ -2674,9 +2861,10 @@ def ablation_path(torch, K, FK):
         plots = sorted(f for f in os.listdir(base) if f.endswith(".png"))
         grid = os.path.exists(os.path.join(base, "demo_param.jpg"))
     seconds = time.perf_counter() - t0
-    want = nerf_want(K, ABLATION_STEPS)
-    print(f"  runs {[(e, n) for e, n, _ in meter.runs]}; launches per run "
-          f"{[l for _, _, l in meter.runs]}; test.json keys ok "
+    print(f"  runs {[(e, n) for e, n, _, _ in meter.runs]}; launches per "
+          f"run {[l for _, _, l, _ in meter.runs]}; renders' passes per run "
+          f"{[r for *_, r in meter.runs]}, in all {renders.forwards}; "
+          f"test.json keys ok "
           f"{all(k == TEST_JSON_KEYS for k in jsons.values())}; plots "
           f"{plots or 'none (matplotlib not installed)'}; demo_param.jpg "
           f"{grid}; {seconds:.1f} s", flush=True)
@@ -2685,8 +2873,10 @@ def ablation_path(torch, K, FK):
           f"PSNR {out['train_psnr']}", flush=True)
     has_plt = importlib.util.find_spec("matplotlib") is not None
     if not (len(meter.runs) == 4
-            and all(n == ABLATION_STEPS and l == want
-                    for _, n, l in meter.runs)
+            and all(n == ABLATION_STEPS
+                    and l == nerf_want(K, ABLATION_STEPS, r)
+                    for _, n, l, r in meter.runs)
+            and nerf_launches(K)["nerf_mlp_fwd_tf32"] == renders.forwards
             and len(jsons) == 4
             and all(k == TEST_JSON_KEYS for k in jsons.values())
             and bool(plots) == has_plt and grid):
@@ -3102,6 +3292,29 @@ def main() -> int:
             entry["roofline"] = {"shape": f"N={roofline_n}",
                                  **times["roofline"][name]}
         kernels.append(entry)
+
+    phase(f"the fused fp32 forward ({NERF_TF32_KERNEL}, 3xTF32) vs its "
+          f"plain version at a view tile's passes (N={VIEW_TILE_N[0]:,}, "
+          f"{VIEW_TILE_N[1]:,}), timed; render_image through it")
+    tf32 = check_nerf_tf32(torch, K, build)
+    torch.cuda.synchronize()
+    summary["nerf_tf32_render"] = tf32.pop("render")
+    summary["ptxas_nerf_tf32"] = tf32.pop("ptxas")
+    tc, fc = (dict(tf32[n]) for n in VIEW_TILE_N)
+    err = max(max(r["err_vs_plain_version"], r["err_vs_fp32_forward"])
+              for r in (tc, fc))
+    entry = kernel_entry(
+        "nerf_mlp_fwd_tf32", src, "none (the port's route for the forwards "
+        "autograd does not record: view renders)",
+        summary["nerf_tf32_render"]["launches"], err, tc, fc,
+        f"N={VIEW_TILE_N[0]} (a view tile's coarse pass)",
+        f"N={VIEW_TILE_N[1]}", "NeRFModel.forward without autograd "
+        "(render_image, 200x200)")
+    entry["sass"] = {NERF_TF32_KERNEL: {
+        "HGMMA": sass[NERF_TF32_KERNEL][0],
+        "HGMMA_TF32": sass[NERF_TF32_KERNEL][2],
+        "HMMA": sass[NERF_TF32_KERNEL][1]}}
+    kernels.append(entry)
 
     film_errs = {}
     for n_img, n_pts in ((FILM_B, FILM_COARSE_P), (FILM_B, FILM_FINE_P),

@@ -2,12 +2,14 @@
 ``msra_practice_project_tpu/eval/nerf_common.py``): reload an experiment
 and render one view.
 
-Renders use the plain models (``NeRFModel.forward``), as the JAX eval path
-does: the fused kernels serve the train step only.  Under a process group
-of more than one rank (``parallel/mesh.py``) a view's ray tiles are split
-over the ranks (``ops.render.render_image``), as the JAX package's
-``render_image_sharded`` splits them over its chips.  ``load_experiment``
-also reads a JAX run's directory.
+Renders call the models (``NeRFModel.forward``), as the JAX eval path
+does.  Under ``render_image``'s ``no_grad`` a PE model on CUDA takes the
+fused fp32 forward (``ops/kernels/nerf_mlp.nerf_forward_tf32``, 3xTF32 on
+the tensor cores); a SIREN model, and the CPU, the plain one.  Under a
+process group of more than one rank (``parallel/mesh.py``) a view's ray
+tiles are split over the ranks (``ops.render.render_image``), as the JAX
+package's ``render_image_sharded`` splits them over its chips.
+``load_experiment`` also reads a JAX run's directory.
 """
 
 from __future__ import annotations

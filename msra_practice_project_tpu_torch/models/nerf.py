@@ -12,6 +12,16 @@ the PEs and skips the raw position: ``[pos, h]`` into layer 5 and
 follow the JAX param tree (``layers_pos``, ``layers_dir``, ``sigma``,
 ``rgb``).  The SirenNeRF runs as plain PyTorch on either device: the fused
 kernels serve the PE model only, as the JAX package's Pallas kernel does.
+
+Which forwards take a kernel: ``forward`` of the PE model at the default
+widths on a CUDA float32 input that autograd does not record (grad
+disabled, or neither the input nor a parameter requires grad: the view
+renders of the eval scripts, the trainer's preview and the benchmark) runs
+``ops/kernels/nerf_mlp.nerf_forward_tf32``, one fused fp32 kernel (3xTF32
+products on the tensor cores, within 1e-4 of max|ref| of the plain forward).
+Every other call (the CPU, a forward that records a graph, the SirenNeRF,
+other widths) runs ``forward_plain``.  The train step's fused route is
+``fused_nerf_apply``, which the trainer calls itself.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from torch import nn
 
 from ..core.nn import (dense_init, positional_encoding,
                        positional_encoding_dim, siren_apply, siren_init)
+from ..ops.kernels import nerf_mlp as nerf_kernels
 
 
 @dataclass(frozen=True)
@@ -65,9 +76,15 @@ class NeRFModel(nn.Module):
         self.rgb = dense(h // 2, 3, "sigmoid")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.use_siren:
+        if self.cfg.use_siren:
             return self._siren_forward(x)
+        if nerf_kernels.takes_tf32_kernel(self, x):
+            return nerf_kernels.nerf_forward_tf32(self, x)
+        return self.forward_plain(x)
+
+    def forward_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The PE model's forward in plain PyTorch, on either device."""
+        cfg = self.cfg
         pos, direction = x[..., :3], x[..., 3:6]
         e_pos = positional_encoding(pos, cfg.pe_pos_length)
         e_dir = positional_encoding(direction, cfg.pe_dir_length)

@@ -1323,6 +1323,428 @@ dx_tc_kernel(const __grid_constant__ CUtensorMap w5a_map,
 }
 
 // ---------------------------------------------------------------------------
+// fp32: K3 as 3xTF32 products on wgmma
+// ---------------------------------------------------------------------------
+//
+// nerf_fwd_tf32_kernel (`nerf_mlp_fwd_tf32`) computes K3's function, x [N,
+// 8] -> out [N, 8] with no activations kept, to fp32 accuracy: every
+// product of the trunk and the view branch as three tf32 tensor-core
+// products (tile_mm.cuh, "tf32 on wgmma"), the heads in fp32 on the CUDA
+// cores.  It replaces no TPU kernel: the JAX package renders with the
+// plain models, and this is the port's route for the same function
+// (models/nerf.py takes it for every CUDA fp32 forward of the PE model that
+// autograd does not record: the view renders).
+//
+// Design (the layout of film_mlp.cu's fp32 K8, for NeRF's products):
+// persistent CTAs, one per SM, walk 64-point tiles.  A tile's activations
+// sit in shared memory as K-major big and small halves (128 KB,
+// nt_a_offset).  A producer thread streams the weight stack
+// (ops/kernels/nerf_mlp.py::tf32_stack: per product, in nt_slices' order,
+// and per K-slice of 32, the slice of W^T rounded to tf32, then its
+// remainder, each a [N, 32] block of N = 256 or 128 rows: one TMA box)
+// through a ring of NT_STAGES 32 KB stages.  Two consumer warpgroups split
+// the N output columns (wgmma.m64n128k8, m64n64k8 in the view branch); per
+// K-slice the big stage gives small(A) big(W) + big(A) big(W), the small
+// stage big(A) small(W).  The epilogues add the bias and take the relu on
+// the accumulator registers, and write h back into A as its big and small
+// halves once both warpgroups' products have retired.  The PEs are
+// computed on the CUDA cores (accurate sincosf, no fast math: the
+// arguments reach ~3,000 rad) into A's first columns: e_pos before W0 and
+// again, from the registers that kept its values, once h4 W5b has retired
+// (h5 = h4 W5b + e_pos W5a into one accumulator; the ring and A leave no
+// shared memory for a resident copy), e_dir once hd W9a has.  sigma (from
+// the unrounded h7) and rgb (from h9) are fp32 sums on the CUDA cores;
+// warpgroup 1's partial sums reach warpgroup 0 through shared memory.  No
+// atomics: two launches are bitwise equal.
+//
+// What bounds it on an H100: per point 593,920 MACs on the tensor cores
+// (the padded products), three times over in tf32: ~7.6 / ~22.6 ms at a
+// view tile's 1,048,576 / 3,145,728 points at 494.7 TFLOP/s (FMA on the
+// CUDA cores at 67 TFLOP/s: ~18.6 / ~55.9 ms).  Each 64-point tile streams
+// 4.75 MB of weights from L2, which K8's measurements put near the same
+// bound, so the epilogues are short (bias, relu, the tf32 split) and the
+// ring runs on across products and tiles.
+
+constexpr int NT_STAGES = 3;
+constexpr int NT_KS = 32;                        // K per stage: 128 B of fp32
+constexpr int NT_STAGE_BYTES = HID * NT_KS * 4;  // 32768: 256 columns x 32 K
+constexpr int NT_TILE = 64;                      // points per CTA
+constexpr int NT_A_BLOCK = NT_TILE * NT_KS * 4;  // 8192: 64 points x 32 K
+constexpr int NT_A_BYTES = HID / NT_KS * NT_A_BLOCK;  // 65536: one half of A
+constexpr int NT_CONSUMERS = 2 * TC_WG;
+// and a producer warpgroup (one thread issues the TMA loads), so that
+// setmaxnreg can move registers to the consumers
+constexpr int NT_THREADS = NT_CONSUMERS + 128;
+constexpr int NT_NACC = HID / 2 / 2;             // a warpgroup's accumulators
+// the kernel's own region: warpgroup 1's partial head sums, [64][4]
+constexpr int NT_HEADS_BYTES = NT_TILE * 4 * 4;
+// [1024-aligned ring | A big | A small | head sums | full, empty barriers]
+constexpr size_t NT_SMEM = 1024 + (size_t)NT_STAGES * NT_STAGE_BYTES
+                           + 2 * (size_t)NT_A_BYTES + NT_HEADS_BYTES
+                           + 2 * NT_STAGES * 8;
+static_assert(NT_SMEM <= 232448, "the fp32 NeRF forward exceeds shared memory");
+// The epilogues walk the accumulators in blocks of NT_JB steps of j.
+constexpr int NT_JB = 8;
+
+// The stream's products in order (nerf_mlp.py's TF32_SCHEDULE): W0, W1..W4,
+// W5b, W5a, W6, W7, W8, W9a, W9b; product p's K-slices and output columns.
+constexpr int NT_PRODUCTS = 12;
+__host__ __device__ constexpr int nt_slices(int p) {
+  return p == 0 || p == 6 ? PE_POS / NT_KS
+                          : (p == 11 ? PE_DIR / NT_KS : HID / NT_KS);
+}
+__host__ __device__ constexpr int nt_cols(int p) {
+  return p < 10 ? HID : RGB_HID;
+}
+constexpr int nt_stack_rows() {
+  int rows = 0;
+  for (int p = 0; p < NT_PRODUCTS; ++p) rows += 2 * nt_slices(p) * nt_cols(p);
+  return rows;
+}
+constexpr int NT_STACK_ROWS = nt_stack_rows();  // 37,120: 4.75 MB
+static_assert(NT_STACK_ROWS == 37120, "the tf32 stack's rows");
+
+// A's byte offset (in either half) of (point p, column col): the 32-column
+// block, then the point's 128-byte row with its 16-byte chunks permuted by
+// the 128-byte swizzle
+__device__ __forceinline__ int nt_a_offset(int p, int col) {
+  return (col >> 5) * NT_A_BLOCK + p * 128 + ((((col >> 2) ^ p) & 7) << 4)
+         + (col & 3) * 4;
+}
+
+struct NtCtx {
+  uint32_t ring, bars;  // shared addresses: the ring; full, then empty
+  uint32_t a;           // A's big half; its small half follows
+  unsigned char* ag;    // ... and its generic pointer
+  float* heads;         // warpgroup 1's partial head sums
+  int it;               // ring stages consumed so far
+  int wg, warp, lane, tid;
+};
+
+// The two consumer warpgroups' barrier (named barrier 1).
+__device__ __forceinline__ void nt_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT_CONSUMERS) : "memory");
+}
+
+// v -> A's big and small halves at (point p, column col).
+__device__ __forceinline__ void nt_store(const NtCtx& c, int p, int col,
+                                         float v) {
+  const float big = tf32_big(v);
+  const int off = nt_a_offset(p, col);
+  *reinterpret_cast<float*>(c.ag + off) = big;
+  *reinterpret_cast<float*>(c.ag + NT_A_BYTES + off) = __fsub_rn(v, big);
+}
+
+// A positional encoding of the tile (x rows at xt), interleaved [sin_f(3),
+// cos_f(3)] per frequency f as fwd_pe computes it, zero-padded: e_pos
+// (POS, 10 frequencies, A's columns 0..63) or e_dir (4, columns 0..31).
+// Both warpgroups share it: (point, frequency, dimension) i = t +
+// NT_CONSUMERS k is thread t's k-th, its sine and cosine v[2 k], v[2 k + 1].
+template <bool POS> struct NtPe {
+  static constexpr int NF = POS ? 10 : 4, NQ = 3 * NF;
+  static constexpr int IT = (NT_TILE * NQ + NT_CONSUMERS - 1) / NT_CONSUMERS;
+  static constexpr int PAD = (POS ? PE_POS : PE_DIR) - 6 * NF;
+};
+
+// This thread's values of the encoding (accurate sincosf: the arguments
+// reach ~3,000 rad).
+template <bool POS>
+__device__ __forceinline__ void nt_pe_values(
+    const NtCtx& c, const float* xt, float (&v)[2 * NtPe<POS>::IT]) {
+  using E = NtPe<POS>;
+  const int t = c.wg * TC_WG + c.tid;
+#pragma unroll
+  for (int k = 0; k < E::IT; ++k) {
+    const int i = t + NT_CONSUMERS * k, r = i / E::NQ, q = i % E::NQ;
+    const int f = q / 3, d = q % 3;
+    if (i < NT_TILE * E::NQ)
+      sincosf(__ldg(xt + r * IN_PAD + (POS ? d : 3 + d)) * (float)(1 << f),
+              &v[2 * k], &v[2 * k + 1]);
+  }
+}
+
+// The values into A's big and small halves, with the padding's zeros.
+// Ends with A visible to the next wgmma.
+template <bool POS>
+__device__ __forceinline__ void nt_pe_store(
+    const NtCtx& c, const float (&v)[2 * NtPe<POS>::IT]) {
+  using E = NtPe<POS>;
+  const int t = c.wg * TC_WG + c.tid;
+#pragma unroll
+  for (int k = 0; k < E::IT; ++k) {
+    const int i = t + NT_CONSUMERS * k, r = i / E::NQ, q = i % E::NQ;
+    const int col = 6 * (q / 3) + q % 3;
+    if (i < NT_TILE * E::NQ) {
+      nt_store(c, r, col, v[2 * k]);
+      nt_store(c, r, col + 3, v[2 * k + 1]);
+    }
+  }
+  for (int i = t; i < NT_TILE * E::PAD; i += NT_CONSUMERS)
+    nt_store(c, i / E::PAD, 6 * E::NF + i % E::PAD, 0.f);
+  fence_proxy_async();
+  nt_sync();
+}
+
+// One ring stage's wgmmas on this warpgroup's NW columns (rows NW wg.. of
+// the stage) for the K-slice whose A blocks start at shared address a: the
+// big stage (BIG) small(A) big(W) + big(A) big(W), the small stage big(A)
+// small(W).  zero: the product's first stage, which starts from zero;
+// release: the previous stage's wgmmas are waited for and the stage
+// released.  Each stage's wgmmas follow their own wgmma.fence, as in K8.
+template <int NW, bool BIG>
+__device__ __forceinline__ void nt_stage(NtCtx& c, float* acc, uint32_t a,
+                                         bool zero, bool release) {
+  const int st = c.it % NT_STAGES;
+  mbar_wait(c.bars + 8 * st, (c.it / NT_STAGES) & 1);
+  __syncwarp();  // wgmma is .aligned
+  const uint32_t b = c.ring + st * NT_STAGE_BYTES + c.wg * NW * 128;
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < NT_KS / 8; ++k) {
+    const uint64_t db = gmma_desc(b + k * 32, TC_A_LBO, TC_A_SBO);
+    const uint64_t big = gmma_desc(a + k * 32, TC_A_LBO, TC_A_SBO);
+    if constexpr (NW == HID / 2) {
+      if constexpr (BIG)
+        wgmma_m64n128k8_tf32(acc, gmma_desc(a + NT_A_BYTES + k * 32, TC_A_LBO,
+                                            TC_A_SBO), db, !zero || k > 0);
+      wgmma_m64n128k8_tf32(acc, big, db, 1);
+    } else {
+      if constexpr (BIG)
+        wgmma_m64n64k8_tf32(acc, gmma_desc(a + NT_A_BYTES + k * 32, TC_A_LBO,
+                                           TC_A_SBO), db, !zero || k > 0);
+      wgmma_m64n64k8_tf32(acc, big, db, 1);
+    }
+  }
+  wgmma_commit();
+  if (release) {
+    wgmma_wait<1>();  // the previous stage's wgmmas have retired
+    mbar_arrive(c.bars + 8 * (NT_STAGES + (c.it - 1) % NT_STAGES));
+  }
+  ++c.it;
+}
+
+// acc (+)= A W over the next 2 SLICES ring stages, A's K-slices from A's
+// block 0 (one product of NW columns per warpgroup); accumulate = false
+// starts from zero.  Ends with this warpgroup's wgmmas retired and every
+// stage released; the other warpgroup may still read A.
+template <int NW, int SLICES>
+__device__ __forceinline__ void nt_product(NtCtx& c, float* acc,
+                                           bool accumulate) {
+#pragma unroll 1
+  for (int ks = 0; ks < SLICES; ++ks) {
+    const uint32_t a = c.a + ks * NT_A_BLOCK;
+    nt_stage<NW, true>(c, acc, a, !accumulate && ks == 0, ks > 0);
+    nt_stage<NW, false>(c, acc, a, false, true);
+  }
+  wgmma_wait0();
+  mbar_arrive(c.bars + 8 * (NT_STAGES + (c.it - 1) % NT_STAGES));
+}
+
+// What an epilogue does besides bias and relu (compile-time, so the walk
+// has no branches to schedule around); nerf_fwd_tc_kernel's EPI_* kinds.
+// Epilogue of a layer on this warpgroup's NW columns: h = acc + b, relu
+// unless EPI_LINEAR; h -> A's big and small halves unless EPI_RGB (h9 feeds
+// only the head); hs[h][q] = this warpgroup's part of row r0 + 8 h's h .
+// Wh[:, q] (q < NH: sigma with EPI_SIGMA, rgb with EPI_RGB), summed over
+// the 4 lanes of a row.
+template <int NW, int KIND>
+__device__ __forceinline__ void nt_epi(const NtCtx& c, const float* acc,
+                                       const float* bias, const float* wh,
+                                       float (&hs)[2][3]) {
+  constexpr bool RELU = !(KIND & EPI_LINEAR), TO_A = !(KIND & EPI_RGB);
+  constexpr int NH = (KIND & EPI_RGB) ? 3 : ((KIND & EPI_SIGMA) ? 1 : 0);
+  static_assert(NW / 8 % NT_JB == 0, "whole blocks of the walk");
+  const int r0 = c.warp * 16 + c.lane / 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) hs[h][q] = 0.f;
+#pragma unroll 1
+  for (int jb = 0; jb < NW / 8; jb += NT_JB) {
+    float a[4 * NT_JB];
+    acc_block<NT_JB, NT_NACC>(acc, jb, a);
+#pragma unroll
+    for (int jj = 0; jj < NT_JB; ++jj) {
+      const int col = c.wg * NW + 8 * (jb + jj) + 2 * (c.lane % 4);
+      const float2 bc = ld2(bias + col);
+      float whc[2][3];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+        for (int q = 0; q < NH; ++q)
+          whc[cc][q] = __ldg(wh + (col + cc) * OUT_PAD + q);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = __fadd_rn(a[4 * jj + 2 * h], bc.x);
+        float v1 = __fadd_rn(a[4 * jj + 2 * h + 1], bc.y);
+        if constexpr (RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        if constexpr (TO_A) {
+          const float2 big = make_float2(tf32_big(v0), tf32_big(v1));
+          const int off = nt_a_offset(r0 + 8 * h, col);
+          *reinterpret_cast<float2*>(c.ag + off) = big;
+          *reinterpret_cast<float2*>(c.ag + NT_A_BYTES + off) =
+              make_float2(__fsub_rn(v0, big.x), __fsub_rn(v1, big.y));
+        }
+#pragma unroll
+        for (int q = 0; q < NH; ++q)
+          hs[h][q] += v0 * whc[0][q] + v1 * whc[1][q];
+      }
+    }
+  }
+  if constexpr (NH > 0) {
+    // a row's NW columns of this warpgroup lie in the 4 lanes that share
+    // lane / 4
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < NH; ++q)
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1)
+          hs[h][q] += __shfl_xor_sync(0xffffffffu, hs[h][q], o);
+  }
+}
+
+// The producer's one thread: the stack's products for each of this
+// CTA's `tiles` tiles, each K-slice's big block then its small one, into
+// the ring (map256 for the 256-row blocks, map128 for the 128-row ones).
+__device__ __forceinline__ void nt_produce(uint32_t ring, uint32_t bars,
+                                           const CUtensorMap* map256,
+                                           const CUtensorMap* map128,
+                                           int tiles) {
+  int it = 0;
+  for (int t = 0; t < tiles; ++t) {
+    int row = 0;
+    for (int p = 0; p < NT_PRODUCTS; ++p) {
+      const int n = nt_cols(p);
+      for (int s = 0; s < 2 * nt_slices(p); ++s, ++it, row += n) {
+        const int st = it % NT_STAGES;
+        mbar_wait(bars + 8 * (NT_STAGES + st), ((it / NT_STAGES) & 1) ^ 1);
+        mbar_expect_tx(bars + 8 * st, n * NT_KS * 4);
+        tma_load_2d(ring + st * NT_STAGE_BYTES, n == HID ? map256 : map128, 0,
+                    row, bars + 8 * st);
+      }
+    }
+  }
+}
+
+// grid min(tiles, SMs), each CTA the tiles blockIdx.x + k gridDim.x; x and
+// out [n, 8]; map256 / map128 over the tf32 stack ([NT_STACK_ROWS, 32]
+// fp32) with boxes of 256 / 128 rows.
+__global__ void __launch_bounds__(NT_THREADS, 1)
+nerf_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map256,
+                     const __grid_constant__ CUtensorMap map128,
+                     const float* __restrict__ x, Params P,
+                     float* __restrict__ out, int n_tiles) {
+  extern __shared__ unsigned char nt_smem_raw[];
+  const uint32_t raw = smem_u32(nt_smem_raw);
+  NtCtx c;
+  c.ring = (raw + 1023) & ~1023u;
+  c.a = c.ring + NT_STAGES * NT_STAGE_BYTES;
+  c.ag = nt_smem_raw + (c.a - raw);
+  c.heads = reinterpret_cast<float*>(c.ag + 2 * NT_A_BYTES);
+  c.bars = c.a + 2 * NT_A_BYTES + NT_HEADS_BYTES;
+  c.it = 0;
+  c.wg = threadIdx.x / TC_WG;
+  c.tid = threadIdx.x % TC_WG;
+  c.warp = c.tid / 32;
+  c.lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NT_STAGES; ++s) {
+      mbar_init(c.bars + 8 * s, 1);
+      mbar_init(c.bars + 8 * (NT_STAGES + s), NT_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= NT_CONSUMERS) {
+    tc_regs_producer();
+    if (threadIdx.x == NT_CONSUMERS) {
+      const int mine = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+      nt_produce(c.ring, c.bars, &map256, &map128, mine);
+    }
+    return;
+  }
+  tc_regs_consumer();
+  auto Bv = [&](int i) { return reinterpret_cast<const float*>(P.p[i]); };
+  constexpr int NW = HID / 2, NWD = RGB_HID / 2;
+  const int r0 = c.warp * 16 + c.lane / 4;
+  float acc[NT_NACC], sig[2][3], rgb[2][3], none[2][3];
+  // e_pos, computed once per tile and kept for W5a; e_dir
+  float pe_pos[2 * NtPe<true>::IT], pe_dir[2 * NtPe<false>::IT];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const size_t row0 = (size_t)tile * NT_TILE;
+    const float* xt = x + row0 * IN_PAD;
+    nt_pe_values<true>(c, xt, pe_pos);
+    nt_pe_store<true>(c, pe_pos);  // also: both warpgroups are done with A
+    nt_product<NW, PE_POS / NT_KS>(c, acc, false);  // h0 = relu(e_pos W0 + b0)
+    nt_sync();  // both warpgroups are done reading A
+    nt_epi<NW, 0>(c, acc, Bv(B0), nullptr, none);
+    for (int l = 1; l < 5; ++l) {  // h1..h4
+      fence_proxy_async();  // A's new values, for the other warpgroup too
+      nt_sync();
+      nt_product<NW, HID / NT_KS>(c, acc, false);
+      nt_sync();
+      nt_epi<NW, 0>(c, acc, Bv(B0 + 2 * l), nullptr, none);
+    }
+    fence_proxy_async();  // h5 = relu(h4 W5b + e_pos W5a + b5)
+    nt_sync();
+    nt_product<NW, HID / NT_KS>(c, acc, false);
+    nt_sync();
+    nt_pe_store<true>(c, pe_pos);
+    nt_product<NW, PE_POS / NT_KS>(c, acc, true);
+    nt_sync();
+    nt_epi<NW, 0>(c, acc, Bv(B5), nullptr, none);
+    fence_proxy_async();  // h6
+    nt_sync();
+    nt_product<NW, HID / NT_KS>(c, acc, false);
+    nt_sync();
+    nt_epi<NW, 0>(c, acc, Bv(B6), nullptr, none);
+    fence_proxy_async();  // h7, and sigma's part from it
+    nt_sync();
+    nt_product<NW, HID / NT_KS>(c, acc, false);
+    nt_sync();
+    nt_epi<NW, EPI_SIGMA>(c, acc, Bv(B7), Bv(WS), sig);
+    fence_proxy_async();  // hd = h7 W8 + b8 (linear)
+    nt_sync();
+    nt_product<NW, HID / NT_KS>(c, acc, false);
+    nt_sync();
+    nt_epi<NW, EPI_LINEAR>(c, acc, Bv(B8), nullptr, none);
+    fence_proxy_async();  // h9 = relu(hd W9a + e_dir W9b + b9), 64 columns each
+    nt_sync();
+    nt_product<NWD, HID / NT_KS>(c, acc, false);
+    nt_sync();
+    nt_pe_values<false>(c, xt, pe_dir);
+    nt_pe_store<false>(c, pe_dir);
+    nt_product<NWD, PE_DIR / NT_KS>(c, acc, true);
+    nt_epi<NWD, EPI_RGB>(c, acc, Bv(B9), Bv(WR), rgb);
+    if (c.wg == 1 && c.lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(c.heads + (r0 + 8 * h) * 4) =
+            make_float4(rgb[h][0], rgb[h][1], rgb[h][2], sig[h][0]);
+    }
+    nt_sync();  // also: both warpgroups are done reading A
+    if (c.wg == 0 && c.lane % 4 == 0) {
+      const float *bs = Bv(BS), *br = Bv(BR);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        const float4 o = *reinterpret_cast<const float4*>(c.heads + r * 4);
+        float4* dst = reinterpret_cast<float4*>(out + (row0 + r) * OUT_PAD);
+        dst[0] = make_float4(1.f / (1.f + expf(-(rgb[h][0] + o.x + br[0]))),
+                             1.f / (1.f + expf(-(rgb[h][1] + o.y + br[1]))),
+                             1.f / (1.f + expf(-(rgb[h][2] + o.z + br[2]))),
+                             fmaxf(sig[h][0] + o.w + bs[0], 0.f));
+        dst[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -1471,6 +1893,43 @@ int dx_tc_launch(const float* x, const Params& P, const void* dh9,
   return (int)cudaGetLastError();
 }
 
+// The tensor map of the tf32 stack ([NT_STACK_ROWS, 32] fp32, 128-byte
+// rows) with boxes of box_rows rows and 128-byte swizzle: one ring stage,
+// or half of one, per box.
+cudaError_t make_map_tf32(CUtensorMap* map, const void* ptr, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)NT_KS, (cuuint64_t)NT_STACK_ROWS};
+  const cuuint64_t strides[1] = {(cuuint64_t)NT_KS * sizeof(float)};
+  const cuuint32_t box[2] = {NT_KS, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// fp32 K3 as 3xTF32: nerf_fwd_tf32_kernel over n / NT_TILE tiles on
+// min(SMs, tiles) CTAs.
+int fwd_tf32_launch(const float* x, const Params& P, const void* wstack,
+                    float* out, int n, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  CUtensorMap map256, map128;
+  cudaError_t e = make_map_tf32(&map256, wstack, HID);
+  if (e == cudaSuccess) e = make_map_tf32(&map128, wstack, RGB_HID);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = set_smem(nerf_fwd_tf32_kernel, NT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = n / NT_TILE;
+  nerf_fwd_tf32_kernel<<<min(sms, n_tiles), NT_THREADS, NT_SMEM, st>>>(
+      map256, map128, x, P, out, n_tiles);
+  return (int)cudaGetLastError();
+}
+
 Params make_params(const void* const* w) {
   Params P;
   for (int i = 0; i < N_PARAMS; ++i) P.p[i] = w[i];
@@ -1502,6 +1961,17 @@ extern "C" int nerf_mlp_fwd(const float* x, const void* const* w,
   if (bf16) return fwd_tc_launch(x, P, wstack, out, nullptr, n, st);
   return pipe ? fwd_pipelined_launch(x, P, out, n, st)
               : fwd_launch<false>(x, P, out, nullptr, n, st);
+}
+
+// K3 in fp32 as 3xTF32 products on wgmma: out [n, 8] from x [n, 8], the
+// packed fp32 weights (biases and heads) and the tf32 stack ([37120, 32]
+// fp32: nerf_mlp.py's tf32_stack).
+extern "C" int nerf_mlp_fwd_tf32(const float* x, const void* const* w,
+                                 const void* wstack, float* out, int n,
+                                 void* stream) {
+  if (n % 128 || n < 1 || !wstack) return (int)cudaErrorInvalidValue;
+  return fwd_tf32_launch(x, make_params(w), wstack, out, n,
+                         reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K2's delta chain alone (its part (a)): deltas [n, DELTA_W] from dy [n, 8]

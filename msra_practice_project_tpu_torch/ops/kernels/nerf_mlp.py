@@ -8,6 +8,12 @@ Port of ``msra_practice_project_tpu/ops/pallas/nerf_mlp.py``:
   K6 ``nerf_mlp_fwd_pipelined`` <- ``_fwd_kernel_pipelined`` (``pipe=True``)
   K5 ``nerf_mlp_bwd``        <- ``_bwd_kernel`` + ``_grad_body`` (recompute)
   K4 ``nerf_mlp_dx``         <- ``_grad_body``'s ``need_dx`` block
+and ``nerf_mlp_fwd_tf32``, K3's function within the fp32 gate (1e-4 of
+max|ref|) as 3xTF32 products on wgmma (``nerf_fwd_tf32_kernel``): about
+21-bit products, not exact fp32 ones.  It replaces no TPU kernel:
+it is the port's route for the forwards that autograd does not record
+(``nerf_forward_tf32``, which ``NeRFModel.forward`` takes for the view
+renders).
 The CUDA kernels are ``csrc/nerf_mlp.cu``; the source notes there give the
 bound on an H100 and the design.  In bf16, K1, K3 and K6 are one kernel on
 wgmma (``nerf_fwd_tc_kernel``) and K2's delta chain another
@@ -45,6 +51,7 @@ import torch.nn.functional as F
 from ...core.diagnostics import span
 from ...core.nn import positional_encoding
 from . import dw_splitk as DW
+from .film_mlp import tf32_split
 
 IN_PAD = 8       # [pos(3), dir(3), pad(2)]
 PE_POS = 64      # 60 used
@@ -184,6 +191,34 @@ def _bwd_stack(w):
     return torch.cat([d[k].t() for k, _, _ in BWD_SCHEDULE])
 
 
+# The fp32 kernel's products in the order it streams their weights
+# (csrc/nerf_mlp.cu's nt_slices and nt_cols): h5 takes h4 W5b before e_pos
+# W5a, so that A holds e_pos again only once h4 is read.
+TF32_SCHEDULE = ("W0", "W1", "W2", "W3", "W4", "W5b", "W5a", "W6", "W7", "W8",
+                 "W9a", "W9b")
+TF32_KS = 32  # K per ring stage: one 128-byte row of fp32
+
+
+def _tf32_blocks(wt: torch.Tensor) -> torch.Tensor:
+    """``[N, K]`` fp32 (a product's W^T) -> its stream rows ``[2 K, N]`` as
+    ``[K / 32 * 2 * N, 32]``: per K-slice of 32, the slice rounded to tf32
+    (N rows), then its remainder (N rows)."""
+    n, k = wt.shape
+    halves = torch.stack(tf32_split(wt))           # [2, N, K]
+    return (halves.view(2, n, k // TF32_KS, TF32_KS).permute(2, 0, 1, 3)
+            .reshape(-1, TF32_KS))
+
+
+def tf32_stack(w: list) -> torch.Tensor:
+    """The fp32 kernel's weight stream, ``[37120, 32]`` fp32: for each product
+    in ``TF32_SCHEDULE`` order and each of its K-slices of 32, the slice of
+    W^T (one row of inputs per output column, K-major) rounded to tf32, then
+    its remainder (``film_mlp.tf32_split``).  W9a and W9b have 128 rows per
+    block, the others 256.  Built on the weights' device."""
+    d = dict(zip(PACK_KEYS, w))
+    return torch.cat([_tf32_blocks(d[k].float().t()) for k in TF32_SCHEDULE])
+
+
 def pad_points(x: torch.Tensor) -> torch.Tensor:
     """``[..., 6]`` points -> zero-padded ``[N_pad, 8]``, N_pad a multiple of
     ``ROW_MULT``."""
@@ -214,26 +249,43 @@ def _pe(x):
             F.pad(pe_d, (0, PE_DIR - pe_d.shape[1])))
 
 
-def _forward_plain(x: torch.Tensor, w: list, bf16: bool):
+def tf32_trunc(a: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a`` as the tensor cores read a tf32 operand: its low 13 bits
+    dropped."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the fp32 kernel computes a product: big(a) big(b) +
+    small(a) big(b) + big(a) small(b) (``film_mlp.tf32_split``), each small
+    truncated as the tensor cores read it."""
+    (ab, as_), (bb, bs) = tf32_split(a), tf32_split(b)
+    return tf32_trunc(as_) @ bb + ab @ bb + ab @ tf32_trunc(bs)
+
+
+def _forward_plain(x: torch.Tensor, w: list, bf16: bool, mm=None):
     """The forward of K1/K3/K5: (out ``[N, 8]`` fp32, the activations by
-    ``ACT_SLOTS`` name, fp32 tensors rounded to bf16 when ``bf16``)."""
+    ``ACT_SLOTS`` name, fp32 tensors rounded to bf16 when ``bf16``).  ``mm``
+    (fp32 only) computes the trunk's and the view branch's products, the
+    heads staying plain fp32 products."""
     w = dict(zip(PACK_KEYS, (t.float() for t in w)))
     st = (lambda a: _round(a, bf16))
+    mm = mm or (lambda a, b: _mm(a, b, bf16))
     relu = torch.relu
     a = {}
     pe_p, pe_d = _pe(x.float())
     a["pe_p"], a["pe_d"] = st(pe_p), st(pe_d)
     h = a["pe_p"]
     for i in range(5):
-        h = a[f"h{i}"] = st(relu(_mm(h, w[f"W{i}"], bf16) + w[f"b{i}"]))
-    h = a["h5"] = st(relu(_mm(a["pe_p"], w["W5a"], bf16)
-                          + _mm(h, w["W5b"], bf16) + w["b5"]))
+        h = a[f"h{i}"] = st(relu(mm(h, w[f"W{i}"]) + w[f"b{i}"]))
+    h = a["h5"] = st(relu(mm(a["pe_p"], w["W5a"]) + mm(h, w["W5b"])
+                          + w["b5"]))
     for i in (6, 7):
-        h = a[f"h{i}"] = st(relu(_mm(h, w[f"W{i}"], bf16) + w[f"b{i}"]))
+        h = a[f"h{i}"] = st(relu(mm(h, w[f"W{i}"]) + w[f"b{i}"]))
     sig = relu(_mm(h, w["Ws"], bf16) + w["bs"])
-    a["hd"] = st(_mm(h, w["W8"], bf16) + w["b8"])
-    a["h9"] = st(relu(_mm(a["hd"], w["W9a"], bf16)
-                      + _mm(a["pe_d"], w["W9b"], bf16) + w["b9"]))
+    a["hd"] = st(mm(h, w["W8"]) + w["b8"])
+    a["h9"] = st(relu(mm(a["hd"], w["W9a"]) + mm(a["pe_d"], w["W9b"])
+                      + w["b9"]))
     rgb = torch.sigmoid(_mm(a["h9"], w["Wr"], bf16) + w["br"])
     out = torch.cat([rgb[:, :3], sig[:, :1],
                      rgb.new_zeros(rgb.shape[0], OUT_PAD - 4)], dim=1)
@@ -244,6 +296,13 @@ def nerf_mlp_fwd_plain(x: torch.Tensor, w: list, bf16: bool) -> torch.Tensor:
     """Plain version of K3 and of K6 (bitwise equal to K3 by contract): out
     ``[N, 8]`` fp32."""
     return _forward_plain(x, w, bf16)[0]
+
+
+def nerf_mlp_fwd_tf32_plain(x: torch.Tensor, w: list) -> torch.Tensor:
+    """Plain version of the fp32 kernel: K3's fp32 forward with every
+    product of the trunk and the view branch as 3xTF32 (``mm_3xtf32``), the
+    heads in fp32: out ``[N, 8]``."""
+    return _forward_plain(x, w, False, mm_3xtf32)[0]
 
 
 def nerf_mlp_fwd_save_plain(x: torch.Tensor, w: list, bf16: bool):
@@ -383,9 +442,10 @@ def _lib():
         lib.nerf_mlp_bwd.argtypes = [p, pp, p, p, p, p, p, i, p, p, p, i, i,
                                      ip, i, i, p]
         lib.nerf_mlp_dx.argtypes = [p, pp, p, p, p, i, p, i, i, p]
+        lib.nerf_mlp_fwd_tf32.argtypes = [p, pp, p, p, i, p]
         for fn in (lib.nerf_mlp_fwd_save, lib.nerf_mlp_fwd,
                    lib.nerf_mlp_deltas, lib.nerf_mlp_bwd_saved,
-                   lib.nerf_mlp_bwd, lib.nerf_mlp_dx):
+                   lib.nerf_mlp_bwd, lib.nerf_mlp_dx, lib.nerf_mlp_fwd_tf32):
             fn.restype = i
         lib._argtypes_set = True
     return lib
@@ -508,6 +568,29 @@ def nerf_mlp_fwd_pipelined(x: torch.Tensor, w: list,
 
 
 nerf_mlp_fwd_pipelined.launches = 0
+
+
+def nerf_mlp_fwd_tf32(x: torch.Tensor, w: list) -> torch.Tensor:
+    """K3's function within the fp32 gate: out ``[N, 8]`` fp32 from fp32
+    weights, every product of the trunk and the view branch as three tf32
+    products on wgmma (about 21-bit products; small x small is dropped).  CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/nerf_mlp.cu``'s ``nerf_fwd_tf32_kernel`` with the weight
+    stream ``tf32_stack`` builds per call."""
+    if x.device.type == "cpu":
+        return nerf_mlp_fwd_tf32_plain(x, w)
+    n = _check_rows(x, "x", IN_PAD)
+    wp = _check_weights(w, False, x.device)
+    out = torch.empty((n, OUT_PAD), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stack = tf32_stack(w)
+        _raise_on(_lib().nerf_mlp_fwd_tf32(
+            x.data_ptr(), wp, stack.data_ptr(), out.data_ptr(), n,
+            _stream(x.device)), "nerf_mlp_fwd_tf32")
+    nerf_mlp_fwd_tf32.launches += 1
+    return out
+
+
+nerf_mlp_fwd_tf32.launches = 0
 
 
 def grad_tasks() -> list:
@@ -711,7 +794,8 @@ def nerf_mlp_dx(x: torch.Tensor, w: list, dh, bf16: bool = True):
 nerf_mlp_dx.launches = 0
 
 KERNELS = (nerf_mlp_fwd_save, nerf_mlp_bwd_saved, nerf_mlp_fwd,
-           nerf_mlp_fwd_pipelined, nerf_mlp_bwd, nerf_mlp_dx)
+           nerf_mlp_fwd_pipelined, nerf_mlp_bwd, nerf_mlp_dx,
+           nerf_mlp_fwd_tf32)
 
 
 def reset_launch_counts() -> None:
@@ -787,5 +871,34 @@ def fused_nerf_apply(model, x: torch.Tensor, bf16: bool = True,
                                   *tensors)
     else:
         out = nerf_mlp_fwd(x_pad, w, bf16)
+    n = x.numel() // x.shape[-1]
+    return out[:n, :4].reshape(*x.shape[:-1], 4)
+
+
+def takes_tf32_kernel(model, x: torch.Tensor) -> bool:
+    """Whether ``model(x)`` goes through ``nerf_forward_tf32``: x a non-empty
+    CUDA float32 tensor, autograd not recording (grad disabled, or neither x
+    nor a parameter requires grad), the model the PE variant at the
+    kernel's widths (hidden 256, 10 position and 4 direction frequencies)."""
+    cfg = model.cfg
+    return (x.is_cuda and x.dtype == torch.float32 and x.numel() > 0
+            and not cfg.use_siren
+            and (cfg.hidden_dim, cfg.pe_pos_length, cfg.pe_dir_length)
+            == (HID, 10, 4)
+            and not (torch.is_grad_enabled() and (
+                x.requires_grad
+                or any(p.requires_grad for p in model.parameters()))))
+
+
+def nerf_forward_tf32(model, x: torch.Tensor) -> torch.Tensor:
+    """``model(x)`` (x ``[..., 6]`` -> ``[..., 4]``) through
+    ``nerf_mlp_fwd_tf32``, its weights packed per call, as
+    ``fused_nerf_apply`` packs them."""
+    with span("nerf_mlp.weights"):
+        packed = pack_nerf_params(model)
+        w = kernel_weights([packed[k] for k in PACK_KEYS], False)
+        x_pad = pad_points(x)
+    with span("nerf_mlp.fwd_call"):
+        out = nerf_mlp_fwd_tf32(x_pad, w)
     n = x.numel() // x.shape[-1]
     return out[:n, :4].reshape(*x.shape[:-1], 4)

@@ -288,8 +288,8 @@ def phase_dp(summary):
     want = [t.cpu().numpy() for t in want]
     diff = max(float(np.abs(a - b).max()) for a, b in zip(views[0], want))
     check(all(np.array_equal(a, b) for v in views for a, b in zip(v, want)),
-          f"every rank's view equals the plain render bitwise (max |diff| "
-          f"{diff})")
+          f"every rank's view equals one process's render bitwise (max "
+          f"|diff| {diff})")
 
     print("[phase] 25d: a one-rank NCCL group, one NeRF step", flush=True)
     batch = lego_batch(NERF_RAYS, seed=1)

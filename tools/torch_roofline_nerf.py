@@ -9,7 +9,8 @@ calls in one CUDA-event window, at the lego recipe's geometry: `batch` rays,
   * the fused MLP (fused_nerf_apply at its default flags) on the step's
     points: forward under no_grad (K3), backward alone (K5 + K4),
     forward + backward (K3 + K5 + K4);
-  * the plain NeRFModel in fp32: forward, forward + backward;
+  * the plain NeRFModel in fp32 (forward_plain): forward, forward +
+    backward;
   * stratified sampling + sample_pdf + sort;
   * compositing forward + backward, coarse and fine pass;
   * Adam alone;
@@ -146,9 +147,9 @@ def main_probes(batch, device, iters):
           f"fused MLP bwd only    {t_b:8.3f} ms  (K5 + K4, graph kept)\n"
           f"fused MLP fwd+bwd     {t_fb:8.3f} ms", flush=True)
 
-    def plain_fwd():
-        with torch.no_grad():
-            return coarse(x).sum()
+    def plain_fwd():   # the plain fp32 forward (no_grad's own route is
+        with torch.no_grad():   # the fused fp32 kernel on CUDA)
+            return coarse.forward_plain(x).sum()
 
     t_px = probe("plain_fwd", plain_fwd)
     t_pfb = probe("plain_fwd_bwd", lambda: torch.autograd.grad(
